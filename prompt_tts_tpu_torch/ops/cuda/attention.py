@@ -1,0 +1,79 @@
+"""Wrapper of the hand-written attention forward kernel (csrc/attention.cu).
+
+Port of the TPU kernel ``prompt_tts_tpu/ops/pallas/attention.py:
+flash_attention``: q ``[B,Tq,H,D]``, k/v ``[B,Tk,H,D]`` (f32 or bf16, head
+dim 32/64/96/128), an optional key-only bias ``[B,1,1,Tk]``; f32 scores and
+softmax statistics; output at q's dtype in ``[B,Tq,H,D]``.
+
+A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
+version (:func:`prompt_tts_tpu_torch.ops.attention.attention_plain`).
+``flash_attention.launches`` counts kernel launches.
+"""
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from prompt_tts_tpu_torch.ops.attention import attention_plain
+from prompt_tts_tpu_torch.ops.cuda import _build
+
+HEAD_DIMS = (32, 64, 96, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _fn():
+    lib = _build.load("attention")
+    fn = lib.ptts_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused attention over ``[B, T, H, D]``; ``bias`` is key-only or None."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    if bias is not None and tuple(bias.shape) != (B, 1, 1, Tk):
+        raise ValueError(f"attention takes a key-only bias [B,1,1,Tk] = "
+                         f"{(B, 1, 1, Tk)} or None, got {tuple(bias.shape)}")
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, bias)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {name} is {t.dtype} on "
+                             f"{t.device}, q is {q.dtype} on {q.device}")
+        if tuple(t.shape) != (B, Tk, H, D):
+            raise ValueError(f"flash_attention: {name} shape "
+                             f"{tuple(t.shape)} != {(B, Tk, H, D)}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: dtype {q.dtype} not supported")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    key_bias = None
+    if bias is not None:
+        if bias.device != q.device:
+            raise ValueError("flash_attention: bias on another device")
+        key_bias = bias.reshape(B, Tk).to(torch.float32).contiguous()
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3])
+    with torch.cuda.device(q.device):
+        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    None if key_bias is None else key_bias.data_ptr(),
+                    out.data_ptr(), B, Tq, Tk, H, D, _DTYPES[q.dtype],
+                    strides, _build.stream_handle(q.device))
+    _build.check(err, "attention kernel launch")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
