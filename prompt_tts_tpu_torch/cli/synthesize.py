@@ -40,8 +40,8 @@ def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
-    from prompt_tts_tpu.config import Config
-    from prompt_tts_tpu.utils.wav import write_wav
+    from prompt_tts_tpu_torch.config import Config
+    from prompt_tts_tpu_torch.utils.wav import write_wav
     from prompt_tts_tpu_torch.pipeline import SAMPLE_RATE, Synthesizer
 
     config = Config.from_json(args.config_file) if args.config_file else None

@@ -1,0 +1,113 @@
+"""Train the TTS model on PyTorch: ``python -m prompt_tts_tpu_torch.cli.train``.
+
+The port of ``prompt_tts_tpu/cli/train.py``: the reference's flags
+(--data_file/--log_dir/--config_file/--ckpt_dir/--batch_size/
+--max_seq_length) plus --epochs, --resume, --ema_decay, --bf16,
+--eval_every, --log_every, --smoke (the tiny config on synthetic data) and
+--device (``cuda`` unless the caller asks for ``cpu``).  The weights start
+from ``train.seed``.  Not ported yet: --tp, --sp, --multihost,
+--per_process_data, --remat, --init_from_ref, --streaming,
+--profile_steps.
+
+  python -m prompt_tts_tpu_torch.cli.train --data_file codes.tar \\
+      --bf16 --ckpt_dir ckpt
+  python -m prompt_tts_tpu_torch.cli.train --smoke --device cpu
+"""
+
+import argparse
+import dataclasses
+import logging
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Train the TTS diffusion model "
+                                            "(PyTorch port).")
+    p.add_argument("--data_file", type=str, default=None,
+                   help="Processed code tar (generate_codes output).")
+    p.add_argument("--log_dir", type=str, default="runs/train",
+                   help="JSONL metrics directory.")
+    p.add_argument("--config_file", type=str, default=None,
+                   help="JSON config (flat reference schema or nested).")
+    p.add_argument("--ckpt_dir", type=str, default=None,
+                   help="Checkpoint directory.")
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--max_seq_length", type=int, default=550)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--resume", action="store_true",
+                   help="Restore the latest checkpoint before training.")
+    p.add_argument("--ema_decay", type=float, default=None,
+                   help="Keep an exponential moving average of the params "
+                        "at this decay (e.g. 0.9999), checkpointed.")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (params and moments stay f32).")
+    p.add_argument("--eval_every", type=int, default=0,
+                   help="Run a deterministic eval pass (Loss/eval) every "
+                        "N epochs (0 = never).")
+    p.add_argument("--log_every", type=int, default=0,
+                   help="Pull loss/grad_norm to the host (a device sync) "
+                        "every N steps; 0 = 50 on the card, 1 on the CPU.")
+    p.add_argument("--smoke", action="store_true",
+                   help="Tiny config on synthetic data (sanity check).")
+    p.add_argument("--device", type=str, default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    """Train; returns the Trainer (its ``global_step``, metrics and
+    state)."""
+    args = parse_args(argv)
+    logging.basicConfig(
+        format="%(asctime)s - %(levelname)s: %(message)s",
+        level=logging.INFO, datefmt="%I:%M:%S",
+    )
+    import torch
+    from prompt_tts_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from prompt_tts_tpu_torch.data.dataset import (
+        CodeDataset, SyntheticDataset,
+    )
+    from prompt_tts_tpu_torch.train.loop import Trainer
+
+    if args.config_file:
+        config = Config.from_json(args.config_file)
+    elif args.smoke:
+        config = Config(
+            model=ModelConfig(
+                block_out_channels=(32, 64, 64, 64), cross_attention_dim=64,
+                attention_head_dim=32, text_encoder_layers=1, cmu_seq_len=32,
+                sample_size=48, layers_per_block=1, unet_num_heads=4),
+            train=TrainConfig(batch_size=8, num_train_epochs=1,
+                              learning_rate=1e-3, lr_warmup_steps=0),
+        )
+    else:
+        config = Config()
+    train = config.train
+    if args.batch_size:
+        train = dataclasses.replace(train, batch_size=args.batch_size)
+    if args.ema_decay is not None:
+        train = dataclasses.replace(train, ema_decay=args.ema_decay)
+    config = dataclasses.replace(config, train=train)
+
+    if args.smoke:
+        dataset = SyntheticDataset(
+            n=16, frames=config.model.sample_size,
+            max_seq_length=config.model.cmu_seq_len)
+    else:
+        if not args.data_file:
+            raise SystemExit("--data_file is required (or use --smoke)")
+        dataset = CodeDataset(args.data_file,
+                              max_seq_length=args.max_seq_length)
+
+    trainer = Trainer(
+        config, dataset, log_dir=args.log_dir, ckpt_dir=args.ckpt_dir,
+        device=args.device,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        eval_every=args.eval_every, log_every=args.log_every)
+    if args.resume:
+        trainer.restore_latest()
+    loss = trainer.train(epochs=args.epochs)
+    logging.info("final loss: %f (step %d)", loss, trainer.global_step)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

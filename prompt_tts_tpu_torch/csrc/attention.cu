@@ -4,6 +4,10 @@
 // (_attn_kernel / _flash_fwd_impl).  Same contract: q [B,Tq,H,D], k/v
 // [B,Tk,H,D] at f32 or bf16, an optional additive key-only bias [B,Tk] (f32),
 // f32 scores and softmax statistics, output at q's dtype in [B,Tq,H,D].
+// Optionally it also writes each row's f32 log-sum-exp lse [B,H,Tq] of the
+// scaled, biased scores, which the training backward (attention_bwd.cu)
+// uses to recompute the probabilities; with a null lse pointer nothing is
+// written and the kernel is the inference forward.
 //
 // Design.  One CTA owns a 64-row query block of one (head, batch): 4 warps of
 // 16 query rows each.  K/V stream through shared memory in 64-key tiles and
@@ -52,7 +56,8 @@ template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ bias,
-                T* __restrict__ o, int Tq, int Tk, float scale,
+                T* __restrict__ o, float* __restrict__ lse, int Tq, int Tk,
+                int H, float scale,
                 long long sqb, long long sqt, long long sqh,
                 long long skb, long long skt, long long skh,
                 long long svb, long long svt, long long svh,
@@ -170,13 +175,15 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc)
         store(ob + t * sot + lane + 32 * cc, acc[r][cc] * inv);
+      if (lse != nullptr && lane == 0)
+        lse[((long long)b * H + h) * Tq + t] = m[r] + logf(l[r]);
     }
   }
 }
 
 template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   void* o, int B, int Tq, int Tk, int H, const long long* st,
+                   void* o, void* lse, int B, int Tq, int Tk, int H, const long long* st,
                    cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
   auto kern = attn_fwd_kernel<D, T>;
@@ -197,7 +204,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(o), Tq, Tk, rsqrtf((float)D),
+      static_cast<T*>(o), static_cast<float*>(lse), Tq, Tk, H, rsqrtf((float)D),
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], st[10], st[11]);
   return cudaGetLastError();
@@ -205,13 +212,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const void* bias, void* o, int B, int Tq, int Tk, int H,
-                       const long long* st, cudaStream_t stream) {
+                       const void* bias, void* o, void* lse, int B, int Tq,
+                       int Tk, int H, const long long* st, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<32, T>(q, k, v, bias, o, B, Tq, Tk, H, st, stream);
-    case 64: return launch<64, T>(q, k, v, bias, o, B, Tq, Tk, H, st, stream);
-    case 96: return launch<96, T>(q, k, v, bias, o, B, Tq, Tk, H, st, stream);
-    case 128: return launch<128, T>(q, k, v, bias, o, B, Tq, Tk, H, st, stream);
+    case 32: return launch<32, T>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, stream);
+    case 64: return launch<64, T>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, stream);
+    case 96: return launch<96, T>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, stream);
+    case 128: return launch<128, T>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -220,17 +227,18 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, (batch,
 // time, head) for q, k, v, o in that order; the head_dim stride must be 1.
-// bias: [B, Tk] float32 or null.  Returns cudaGetLastError() after launch.
+// bias: [B, Tk] float32 or null.  lse: [B, H, Tq] float32 out, or null.
+// Returns cudaGetLastError() after launch.
 extern "C" int ptts_attention_fwd(const void* q, const void* k, const void* v,
-                                  const void* bias, void* o, int B, int Tq,
+                                  const void* bias, void* o, void* lse, int B, int Tq,
                                   int Tk, int H, int D, int dtype,
                                   const long long* strides, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || H > 65535 || B > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, bias, o, B, Tq, Tk, H, strides, s);
+    return dispatch_d<float>(D, q, k, v, bias, o, lse, B, Tq, Tk, H, strides, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, bias, o, B, Tq, Tk, H, strides, s);
+    return dispatch_d<__nv_bfloat16>(D, q, k, v, bias, o, lse, B, Tq, Tk, H, strides, s);
   return cudaErrorInvalidValue;
 }

@@ -5,11 +5,16 @@ channels-last ``[B, T, C]`` as in the JAX package.  Submodules are named
 after the JAX param tree (``conv/conv``, ``norm1/norm``, ``attn1/to_q``, ...)
 so ``convert.py`` maps a JAX checkpoint by layout rules alone.
 
-Mixed precision follows flax's ``dtype=`` semantics: matmul and conv
-layers compute in the dtype of their weights (``cast_compute_`` casts them,
-e.g. to bf16, and the input is cast to match), while the norms keep f32
+Mixed precision follows flax's ``dtype=`` semantics: matmul, conv and
+embedding layers compute in their compute dtype, while the norms keep f32
 params and compute their statistics in f32, returning the input's dtype.
-Dropout is not ported: this package runs inference.
+Two ways to set it: inference casts the weights once, in place
+(``cast_compute_``), and the layers compute in the weights' dtype; training
+keeps f32 parameters for the optimizer and casts weights and inputs per
+call (``set_compute_dtype_``), as flax does.
+
+Dropout sits where the JAX model has it (attention output, GEGLU hidden,
+UNet resnet block) and is active only in ``module.train()``.
 """
 
 from typing import Optional, Tuple
@@ -21,11 +26,29 @@ from torch import nn
 from prompt_tts_tpu_torch.ops.attention import scaled_dot_product_attention
 
 
+def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
 class Dense(nn.Linear):
-    """``nn.Linear`` casting its input to the weight's dtype (flax Dense)."""
+    """``nn.Linear`` computing in ``compute_dtype`` (the weight's dtype when
+    None), input and params cast per call (flax Dense)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.compute_dtype or self.weight.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` looking up in ``compute_dtype`` (flax Embed)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        return F.embedding(ids, self.weight.to(dt))
 
 
 class Conv1d(nn.Module):
@@ -40,9 +63,14 @@ class Conv1d(nn.Module):
         self.conv = nn.Conv1d(in_channels, features, kernel_size, stride,
                               padding, bias=use_bias, device=device)
 
+    compute_dtype: Optional[torch.dtype] = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.conv.weight.dtype).transpose(1, 2)
-        return self.conv(x).transpose(1, 2)
+        c = self.conv
+        dt = self.compute_dtype or c.weight.dtype
+        x = x.to(dt).transpose(1, 2)
+        return c._conv_forward(x, c.weight.to(dt),
+                               _cast(c.bias, dt)).transpose(1, 2)
 
 
 class GroupNorm(nn.Module):
@@ -77,8 +105,10 @@ class Attention(nn.Module):
     projection with bias, scale ``head_dim**-0.5``)."""
 
     def __init__(self, query_dim: int, context_dim: int, num_heads: int,
-                 head_dim: int, out_dim: Optional[int] = None, device=None):
+                 head_dim: int, out_dim: Optional[int] = None,
+                 dropout: float = 0.0, device=None):
         super().__init__()
+        self.dropout = nn.Dropout(dropout)
         self.num_heads = num_heads
         self.head_dim = head_dim
         inner = num_heads * head_dim
@@ -106,42 +136,47 @@ class Attention(nn.Module):
             k = self.to_k(ctx).reshape(B, Tk, self.num_heads, self.head_dim)
             v = self.to_v(ctx).reshape(B, Tk, self.num_heads, self.head_dim)
         out = scaled_dot_product_attention(q, k, v, bias=bias)
-        return self.to_out(out.reshape(B, Tq, -1))
+        return self.dropout(self.to_out(out.reshape(B, Tq, -1)))
 
 
 class GEGLUFeedForward(nn.Module):
     """GEGLU feed-forward ``Dense(8C) -> value * gelu(gate) -> Dense(C)``,
     exact-erf GELU (diffusers ``FeedForward(activation_fn="geglu")``)."""
 
-    def __init__(self, dim: int, mult: int = 4, device=None):
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0,
+                 device=None):
         super().__init__()
         inner = dim * mult
         self.proj = Dense(dim, inner * 2, device=device)
+        self.dropout = nn.Dropout(dropout)
         self.out = Dense(inner, dim, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         value, gate = self.proj(x).chunk(2, dim=-1)
-        return self.out(value * F.gelu(gate))
+        return self.out(self.dropout(value * F.gelu(gate)))
 
 
 class TransformerBlock(nn.Module):
     """Pre-norm block == diffusers ``BasicTransformerBlock``: self-attn,
     [cross-attn when ``cross_attention_dim`` is set], GEGLU FF, each with a
-    LayerNorm (eps 1e-5) in front and a residual around it."""
+    LayerNorm (eps 1e-5) in front and a residual around it; ``dropout`` on
+    each attention output and on the feed-forward's hidden activations."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
-                 cross_attention_dim: Optional[int] = None, device=None):
+                 cross_attention_dim: Optional[int] = None,
+                 dropout: float = 0.0, device=None):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-5, device=device)
         self.attn1 = Attention(dim, dim, num_heads, head_dim, dim,
-                               device=device)
+                               dropout=dropout, device=device)
         self.has_cross = cross_attention_dim is not None
         if self.has_cross:
             self.norm2 = LayerNorm(dim, eps=1e-5, device=device)
             self.attn2 = Attention(dim, cross_attention_dim, num_heads,
-                                   head_dim, dim, device=device)
+                                   head_dim, dim, dropout=dropout,
+                                   device=device)
         self.norm3 = LayerNorm(dim, eps=1e-5, device=device)
-        self.ff = GEGLUFeedForward(dim, device=device)
+        self.ff = GEGLUFeedForward(dim, dropout=dropout, device=device)
 
     def forward(
         self,
@@ -171,8 +206,21 @@ def mask_to_bias(mask: torch.Tensor,
 def cast_compute_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the matmul/conv/embedding weights of ``module`` to ``dtype`` in
     place; norm params stay f32.  The port of a flax model run with
-    ``dtype=bf16`` over f32 params: the cast happens once, not per call."""
+    ``dtype=bf16`` over f32 params, for inference: the cast happens once,
+    not per call."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d, nn.Embedding)):
             m.to(dtype)
+    return module
+
+
+def set_compute_dtype_(module: nn.Module,
+                       dtype: Optional[torch.dtype]) -> nn.Module:
+    """Make the matmul/conv/embedding layers of ``module`` compute in
+    ``dtype`` (None: in their weights' dtype), casting weights and inputs
+    per call: the parameters keep their dtype (f32 for training) and
+    receive f32 gradients through the casts."""
+    for m in module.modules():
+        if isinstance(m, (Dense, Conv1d, Embedding)):
+            m.compute_dtype = dtype
     return module

@@ -3,7 +3,8 @@
 Port of ``prompt_tts_tpu/models/text_encoder.py``: word embedding, the
 reference's transposed sinusoidal positional table, then ``num_layers``
 self-attention-only transformer blocks with the 0/1 mask turned into an
-additive -1e4 key bias.
+additive -1e4 key bias; ``dropout`` (``text_encoder_dropout``, 0.1 by
+default) in every block.
 """
 
 import torch
@@ -12,17 +13,20 @@ from torch import nn
 from prompt_tts_tpu_torch.models.embeddings import (
     transposed_positional_encoding,
 )
-from prompt_tts_tpu_torch.models.layers import TransformerBlock, mask_to_bias
+from prompt_tts_tpu_torch.models.layers import (
+    Embedding, TransformerBlock, mask_to_bias,
+)
 
 
 class TextEncoder(nn.Module):
     def __init__(self, vocab_len: int, seq_len: int, dim: int,
-                 attention_head_dim: int, num_layers: int = 1, device=None):
+                 attention_head_dim: int, num_layers: int = 1,
+                 dropout: float = 0.0, device=None):
         super().__init__()
         if dim % attention_head_dim != 0:
             raise ValueError("dim must be a multiple of attention_head_dim")
         num_heads = dim // attention_head_dim
-        self.word_embedding = nn.Embedding(vocab_len, dim, device=device)
+        self.word_embedding = Embedding(vocab_len, dim, device=device)
         self.register_buffer(
             "pos", torch.from_numpy(
                 transposed_positional_encoding(seq_len, dim)).to(device),
@@ -30,7 +34,8 @@ class TextEncoder(nn.Module):
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"block_{i}", TransformerBlock(
-                dim, num_heads, attention_head_dim, device=device))
+                dim, num_heads, attention_head_dim, dropout=dropout,
+                device=device))
 
     def forward(self, input_ids: torch.Tensor,     # [B, S] int
                 attention_mask: torch.Tensor,      # [B, S] 0/1

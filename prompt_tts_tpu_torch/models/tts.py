@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from prompt_tts_tpu.config import ModelConfig
+from prompt_tts_tpu_torch.config import ModelConfig
 from prompt_tts_tpu_torch.models.text_encoder import TextEncoder
 from prompt_tts_tpu_torch.models.unet1d import CrossKV, UNet1DCondition
 
@@ -28,7 +28,8 @@ class TTSSingleSpeaker(nn.Module):
             vocab_len=config.cmu_vocab_len, seq_len=config.cmu_seq_len,
             dim=config.cross_attention_dim,
             attention_head_dim=config.attention_head_dim,
-            num_layers=config.text_encoder_layers, device=device)
+            num_layers=config.text_encoder_layers,
+            dropout=config.text_encoder_dropout, device=device)
         self.unet = UNet1DCondition(config, device=device)
 
     def encode_text(self, text_seq_ids: torch.Tensor,

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from prompt_tts_tpu.config import ModelConfig
+from prompt_tts_tpu_torch.config import ModelConfig
 from prompt_tts_tpu_torch.models.embeddings import (
     TimestepEmbedding, timestep_embedding,
 )
@@ -45,11 +45,14 @@ def _nearest_resize(x: torch.Tensor, target_len: int) -> torch.Tensor:
 
 
 class ResnetBlock1D(nn.Module):
-    """GN -> SiLU -> conv3 -> +temb -> GN -> SiLU -> conv3 -> +shortcut."""
+    """GN -> SiLU -> conv3 -> +temb -> GN -> SiLU -> dropout -> conv3 ->
+    +shortcut."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
-                 groups: int = 32, eps: float = 1e-5, device=None):
+                 groups: int = 32, eps: float = 1e-5, dropout: float = 0.0,
+                 device=None):
         super().__init__()
+        self.dropout = nn.Dropout(dropout)
         self.norm1 = GroupNorm(groups, in_channels, eps, device=device)
         self.conv1 = Conv1d(in_channels, out_channels, 3, device=device)
         self.time_emb_proj = Dense(temb_dim, out_channels, device=device)
@@ -64,7 +67,7 @@ class ResnetBlock1D(nn.Module):
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         h = self.conv1(F.silu(self.norm1(x)))
         h = h + self.time_emb_proj(F.silu(temb))[:, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.dropout(F.silu(self.norm2(h))))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -98,13 +101,15 @@ class SpatialTransformer1D(nn.Module):
     (no ``proj_out``: the reference's quirk)."""
 
     def __init__(self, channels: int, num_heads: int,
-                 cross_attention_dim: int, groups: int = 32, device=None):
+                 cross_attention_dim: int, groups: int = 32,
+                 dropout: float = 0.0, device=None):
         super().__init__()
         self.norm = GroupNorm(groups, channels, 1e-6, device=device)
         self.proj_in = Dense(channels, channels, device=device)
         self.block_0 = TransformerBlock(channels, num_heads,
                                         channels // num_heads,
-                                        cross_attention_dim, device=device)
+                                        cross_attention_dim, dropout=dropout,
+                                        device=device)
 
     def forward(self, x, context, cross_kv=None):
         # cross_kv: [(k, v)], one entry per transformer layer (here one)
@@ -126,11 +131,12 @@ class _Block(nn.Module):
         g = cfg.norm_num_groups
         for i, cin in enumerate(resnet_in):
             self.add_module(f"resnet_{i}", ResnetBlock1D(
-                cin, out_channels, temb_dim, g, cfg.norm_eps, device=device))
+                cin, out_channels, temb_dim, g, cfg.norm_eps, cfg.dropout,
+                device=device))
             if cross:
                 self.add_module(f"attn_{i}", SpatialTransformer1D(
                     out_channels, cfg.unet_num_heads,
-                    cfg.cross_attention_dim, g, device=device))
+                    cfg.cross_attention_dim, g, cfg.dropout, device=device))
         if resample == "down":
             self.downsample = Downsample1D(out_channels, device=device)
         elif resample == "up":
@@ -171,12 +177,12 @@ class MidBlock1DCrossAttn(nn.Module):
         super().__init__()
         g = cfg.norm_num_groups
         self.resnet_0 = ResnetBlock1D(channels, channels, temb_dim, g,
-                                      cfg.norm_eps, device=device)
+                                      cfg.norm_eps, cfg.dropout, device=device)
         self.attn_0 = SpatialTransformer1D(
             channels, cfg.unet_num_heads, cfg.cross_attention_dim, g,
-            device=device)
+            cfg.dropout, device=device)
         self.resnet_1 = ResnetBlock1D(channels, channels, temb_dim, g,
-                                      cfg.norm_eps, device=device)
+                                      cfg.norm_eps, cfg.dropout, device=device)
 
     def forward(self, x, temb, context, cross_kv=None):
         x = self.resnet_0(x, temb)

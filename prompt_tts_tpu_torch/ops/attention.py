@@ -7,9 +7,13 @@ padded-text mask of ``models.layers.mask_to_bias``) or None.
 
 On a CUDA tensor the dispatcher launches the hand-written attention kernel
 (``ops/cuda/attention.py``, the port of the TPU ``flash_attention``) at
-every site; on a CPU tensor it runs :func:`attention_plain`.  Ring
-attention, sequence parallelism and the fused-backward arming of the JAX
-package are not ported.
+every site; on a CPU tensor it runs :func:`attention_plain`.  When a
+gradient is needed it goes through :class:`AttentionFunction` instead,
+whose backward is the hand-written backward kernel
+(``ops/cuda/attention_bwd.py``, the port of the TPU
+``attention_fused_bwd``), or :func:`attention_bwd_plain` on the CPU.  No
+flag arms it: needing a gradient is the rule.  Ring attention and
+sequence parallelism are not ported.
 """
 
 from typing import Optional
@@ -42,12 +46,65 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None):
+    """Port of ``_bwd_impl``'s math (prompt_tts_tpu/ops/pallas/
+    attention_bwd.py:61-185), step by step on whole tensors.
+
+    Recomputes the f32 probabilities, then ``delta = rowsum(do*o)``,
+    ``dv = p^T do``, ``ds = p*(do v^T - delta)``, ``dq = ds k*scale``,
+    ``dk = ds^T q*scale`` with f32 accumulation; p and ds*scale are rounded
+    to the input dtype before their products, as the TPU kernel does.
+    Returns dq, dk, dv at the input dtype and the f32 bias gradient
+    ``[B, 1, 1, Tk]`` (ds summed over heads and query rows).
+    """
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    delta = (dof * o.float()).sum(dim=-1).permute(0, 2, 1)[..., None]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta)
+    dbias = ds.sum(dim=(1, 2))[:, None, None, :]
+    ds = (ds * scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+class AttentionFunction(torch.autograd.Function):
+    """Attention for training: the forward kernel, which also keeps the row
+    log-sum-exp, and the backward kernel (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        # imported here: ops/cuda/*.py import the plain versions from
+        # this module
+        from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
+        o, lse = flash_attention(q, k, v, bias, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse, bias)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from prompt_tts_tpu_torch.ops.cuda.attention_bwd import attention_bwd
+        q, k, v, o, lse, bias = ctx.saved_tensors
+        return attention_bwd(q, k, v, o, do, bias, lse,
+                             need_dbias=ctx.needs_input_grad[3])
+
+
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor,
                                  bias: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """Attention over ``[B, T, H, D]`` tensors with an optional key bias."""
-    # imported here: ops/cuda/attention.py imports attention_plain from
-    # this module
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        return AttentionFunction.apply(q, k, v, bias)
     from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
     return flash_attention(q, k, v, bias)

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so`` at the
 root of the checkout, then loaded with ``ctypes``.  The hash covers the
 source and the compiler flags, so an edited source is rebuilt and a stale
-library is never loaded.  Nothing here runs at import time: the CPU tests
-import every module on a machine without ``nvcc``.
+library is never loaded.  Each source has its own lock, so several
+sources build at once from several threads (:func:`load_all`).  Nothing
+here runs at import time: the CPU tests import every module on a machine
+without ``nvcc``.
 """
 
 import ctypes
@@ -24,7 +26,8 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()   # guards _locks
+_locks: dict = {}
 _libs: dict = {}
 # seconds spent compiling each library in this process (0.0 = loaded as built)
 build_seconds: dict = {}
@@ -45,6 +48,8 @@ def _nvcc() -> str:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, compiling it if needed."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = CSRC / f"{name}.cu"
@@ -75,6 +80,13 @@ def load(name: str) -> ctypes.CDLL:
             build_seconds[name] = time.perf_counter() - t0
         _libs[name] = ctypes.CDLL(str(so))
         return _libs[name]
+
+
+def load_all(names) -> None:
+    """Build and load several sources at once, one ``nvcc`` each."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(load, names))
 
 
 def check(err: int, what: str) -> None:

@@ -26,22 +26,27 @@ def _fn():
     lib = _build.load("attention")
     fn = lib.ptts_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused attention over ``[B, T, H, D]``; ``bias`` is key-only or None."""
+                    bias: Optional[torch.Tensor] = None,
+                    return_lse: bool = False):
+    """Fused attention over ``[B, T, H, D]``; ``bias`` is key-only or None.
+
+    Returns ``o``, or ``(o, lse)`` with ``return_lse`` (``lse`` is None on
+    the CPU, whose plain backward recomputes the softmax itself)."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     if bias is not None and tuple(bias.shape) != (B, 1, 1, Tk):
         raise ValueError(f"attention takes a key-only bias [B,1,1,Tk] = "
                          f"{(B, 1, 1, Tk)} or None, got {tuple(bias.shape)}")
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, bias)
+        out = attention_plain(q, k, v, bias)
+        return (out, None) if return_lse else out
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     for name, t in (("k", k), ("v", v)):
@@ -63,17 +68,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("flash_attention: bias on another device")
         key_bias = bias.reshape(B, Tk).to(torch.float32).contiguous()
     out = torch.empty_like(q)
+    lse = (torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3])
     with torch.cuda.device(q.device):
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     None if key_bias is None else key_bias.data_ptr(),
-                    out.data_ptr(), B, Tq, Tk, H, D, _DTYPES[q.dtype],
+                    out.data_ptr(), None if lse is None else lse.data_ptr(),
+                    B, Tq, Tk, H, D, _DTYPES[q.dtype],
                     strides, _build.stream_handle(q.device))
     _build.check(err, "attention kernel launch")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

@@ -1,0 +1,105 @@
+"""Wrapper of the hand-written attention backward kernel
+(csrc/attention_bwd.cu).
+
+Port of the TPU kernel ``prompt_tts_tpu/ops/pallas/attention_bwd.py:
+attention_fused_bwd``: from q, o, do ``[B,Tq,H,D]``, k, v ``[B,Tk,H,D]``
+(f32 or bf16, head dim 32/64/96/128), the key-only bias ``[B,1,1,Tk]`` or
+None and the forward kernel's f32 row log-sum-exp ``[B,H,Tq]``, it returns
+dq, dk, dv at the input dtype and, when asked, the real bias gradient
+``[B,1,1,Tk]`` (ds summed over heads and query rows) at the bias's dtype.
+
+A CUDA tensor launches the kernel (two launches: the dq pass, then the
+dk/dv pass) or raises; a CPU tensor runs the plain version
+(:func:`prompt_tts_tpu_torch.ops.attention.attention_bwd_plain`), which
+recomputes the softmax and needs no lse.  ``attention_bwd.launches``
+counts kernel launches, two per call.
+"""
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from prompt_tts_tpu_torch.ops.attention import attention_bwd_plain
+from prompt_tts_tpu_torch.ops.cuda import _build
+
+HEAD_DIMS = (32, 64, 96, 128)
+LAUNCHES_PER_CALL = 2
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _fn():
+    lib = _build.load("attention_bwd")
+    fn = lib.ptts_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, do: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None,
+                  lse: Optional[torch.Tensor] = None,
+                  need_dbias: bool = False):
+    """``(dq, dk, dv, dbias)``; ``dbias`` is None unless ``need_dbias``."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    if bias is not None and tuple(bias.shape) != (B, 1, 1, Tk):
+        raise ValueError(f"attention_bwd takes a key-only bias [B,1,1,Tk] = "
+                         f"{(B, 1, 1, Tk)} or None, got {tuple(bias.shape)}")
+    if need_dbias and bias is None:
+        raise ValueError("attention_bwd: need_dbias without a bias")
+    if q.device.type == "cpu":
+        dq, dk, dv, db = attention_bwd_plain(q, k, v, o, do, bias)
+        return dq, dk, dv, (db.to(bias.dtype) if need_dbias else None)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_bwd: unsupported device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"attention_bwd: dtype {q.dtype} not supported")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"attention_bwd: head dim {D} not in {HEAD_DIMS}")
+    want = {"k": (B, Tk, H, D), "v": (B, Tk, H, D), "o": (B, Tq, H, D),
+            "do": (B, Tq, H, D)}
+    for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"attention_bwd: {name} is {t.dtype} on "
+                             f"{t.device}, q is {q.dtype} on {q.device}")
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"attention_bwd: {name} shape "
+                             f"{tuple(t.shape)} != {want[name]}")
+    if lse is None or lse.device != q.device or lse.dtype != torch.float32 \
+            or tuple(lse.shape) != (B, H, Tq):
+        raise ValueError(f"attention_bwd: needs the forward's f32 lse "
+                         f"{(B, H, Tq)} on {q.device}")
+    if not all(t.is_contiguous() for t in (q, k, v, o, lse)):
+        raise ValueError("attention_bwd: q, k, v, o and lse must be "
+                         "contiguous")
+    do = do.contiguous()
+    key_bias = None
+    if bias is not None:
+        if bias.device != q.device:
+            raise ValueError("attention_bwd: bias on another device")
+        key_bias = bias.reshape(B, Tk).to(torch.float32).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
+    dbias_h = (torch.empty(B, H, Tk, dtype=torch.float32, device=q.device)
+               if need_dbias else None)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    with torch.cuda.device(q.device):
+        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), ptr(key_bias), lse.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    ptr(dbias_h), delta.data_ptr(), B, Tq, Tk, H, D,
+                    _DTYPES[q.dtype], D ** -0.5,
+                    _build.stream_handle(q.device))
+    _build.check(err, "attention backward kernel launch")
+    attention_bwd.launches += LAUNCHES_PER_CALL
+    dbias = None
+    if need_dbias:   # the bias broadcasts over heads: sum them
+        dbias = dbias_h.sum(dim=1).reshape(B, 1, 1, Tk).to(bias.dtype)
+    return dq, dk, dv, dbias
+
+
+attention_bwd.launches = 0

@@ -13,8 +13,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from prompt_tts_tpu.config import Config
-from prompt_tts_tpu.frontend.tokenizer import Tokenizer
+from prompt_tts_tpu_torch.config import Config
+from prompt_tts_tpu_torch.frontend.tokenizer import Tokenizer
 from prompt_tts_tpu_torch.codec.encodec import EncodecCodec
 from prompt_tts_tpu_torch.codec.layers import CodecLSTM
 from prompt_tts_tpu_torch.diffusion.ddim import ddim_sample

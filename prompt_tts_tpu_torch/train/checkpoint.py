@@ -1,0 +1,73 @@
+"""Checkpointing with restore, step-based.
+
+Port of ``prompt_tts_tpu/train/checkpoint.py`` in the port's own format
+(not orbax): ``<ckpt_dir>/step_<N>/state.pt`` holds the model, optimizer,
+EMA and accumulation state (:meth:`TrainState.state_dict`), the step, and
+the states of the generators that drive training, so a resumed run draws
+the same noise, timesteps and dropout masks it would have drawn.  A save
+writes into a temporary directory and renames it, so a checkpoint on disk
+is always whole; the oldest beyond ``max_to_keep`` are deleted.
+"""
+
+import os
+import re
+import shutil
+import tempfile
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from prompt_tts_tpu_torch.train.state import TrainState
+
+_STEP_DIR = re.compile(r"step_(\d+)")
+
+
+class CheckpointManager:
+    def __init__(self, ckpt_dir: str, max_to_keep: int = 5):
+        self._dir = os.path.abspath(ckpt_dir)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self._dir, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self._dir, f"step_{step}")
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(m.group(1)) for m in map(
+            _STEP_DIR.fullmatch, os.listdir(self._dir)) if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, state: TrainState, step: int,
+             generators: Optional[Dict[str, torch.Tensor]] = None) -> str:
+        """Write checkpoint ``step``; ``generators`` maps a name to a
+        ``Generator.get_state()``.  Returns its directory."""
+        tmp = tempfile.mkdtemp(prefix=".tmp_step_", dir=self._dir)
+        try:
+            torch.save({"state": state.state_dict(), "step": int(step),
+                        "generators": generators or {}},
+                       os.path.join(tmp, "state.pt"))
+            final = self._path(step)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+        finally:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(self._path(old))
+        return final
+
+    def restore(self, state: TrainState, step: Optional[int] = None
+                ) -> Tuple[int, Dict[str, torch.Tensor]]:
+        """Load checkpoint ``step`` (default: the latest) into ``state``;
+        returns ``(step, generator states)``."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self._dir}")
+        device = next(state.model.parameters()).device
+        ckpt = torch.load(os.path.join(self._path(step), "state.pt"),
+                          map_location=device, weights_only=False)
+        state.load_state_dict(ckpt["state"])
+        return int(ckpt["step"]), ckpt["generators"]

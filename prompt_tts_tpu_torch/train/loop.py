@@ -1,0 +1,204 @@
+"""The training loop: epochs, the train step, metrics, checkpoints.
+
+Port of ``prompt_tts_tpu/train/loop.py`` (reference train.py:21-147) on one
+device.  Steps are enqueued eagerly; the loss and gradient norm are pulled
+to the host (a device sync) every ``log_every`` steps.  Tensor, sequence
+and multi-host parallelism, profiling, ``--remat`` and warm starts from a
+reference checkpoint are not ported.
+"""
+
+import logging
+import math
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from prompt_tts_tpu_torch.config import Config
+from prompt_tts_tpu_torch.data.dataset import prefetch
+from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
+from prompt_tts_tpu_torch.models.layers import set_compute_dtype_
+from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
+from prompt_tts_tpu_torch.pipeline import random_init_
+from prompt_tts_tpu_torch.train.checkpoint import CheckpointManager
+from prompt_tts_tpu_torch.train.state import TrainState
+from prompt_tts_tpu_torch.train.step import make_eval_step, make_train_step
+from prompt_tts_tpu_torch.utils.debug import finite_or_warn
+from prompt_tts_tpu_torch.utils.metrics import MetricsWriter
+
+log = logging.getLogger(__name__)
+
+_BATCH_KEYS = ("codes", "text_ids", "text_mask")
+
+
+class Trainer:
+    """Owns the model, train state and generators and runs epochs over a
+    dataset.
+
+    The weights are drawn from ``config.train.seed`` on a CPU generator
+    (the repo holds no checkpoint), so every device starts from the same
+    weights.  ``dtype`` bf16 computes in bf16 over f32 parameters and
+    moments (the JAX ``--bf16``).  ``log_every`` 0 means 50 on the card
+    and 1 on the CPU.  ``eval_every`` > 0 runs :meth:`evaluate` on the
+    train set every that many epochs.  The next batch is collated in a
+    background thread (:func:`prefetch`) while the step runs.
+    """
+
+    def __init__(self, config: Config, dataset, log_dir: str,
+                 ckpt_dir: Optional[str] = None, device="cuda",
+                 dtype: torch.dtype = torch.float32, eval_every: int = 0,
+                 log_every: int = 0):
+        if log_every < 0:
+            raise ValueError(f"log_every must be >= 0, got {log_every}")
+        self.device = torch.device(device)
+        self.config = config
+        self.dataset = dataset
+        self.eval_every = eval_every
+        self.log_every = log_every or (
+            50 if self.device.type == "cuda" else 1)
+        tcfg = config.train
+        self.model = TTSSingleSpeaker(config.model, device=self.device)
+        random_init_(self.model, torch.Generator().manual_seed(tcfg.seed))
+        set_compute_dtype_(self.model,
+                           None if dtype == torch.float32 else dtype)
+        self.schedule = linear_schedule(tcfg.num_train_timesteps,
+                                        device=self.device)
+        self.metrics = MetricsWriter(log_dir)
+        self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+        self.steps_per_epoch = max(
+            1, math.ceil(len(dataset) / tcfg.batch_size))
+        self.num_training_steps = (tcfg.num_train_epochs
+                                   * self.steps_per_epoch)
+        self.state = TrainState(self.model, tcfg, self.num_training_steps)
+        # noise, timesteps and condition drops; dropout uses the device's
+        # default generator
+        self.generator = torch.Generator(self.device).manual_seed(tcfg.seed)
+        self._step_fn = make_train_step(
+            self.state, self.schedule,
+            cond_dropout_prob=tcfg.cond_dropout_prob)
+        self._eval_fn = make_eval_step(self.model, self.schedule)
+        self.global_step = 0
+        self._tput_mark = None
+
+    def _to_device(self, batch: Dict[str, np.ndarray]):
+        return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
+                for k in _BATCH_KEYS}
+
+    def _generator_states(self) -> Dict[str, torch.Tensor]:
+        states = {"train": self.generator.get_state()}
+        if self.device.type == "cuda":
+            states["dropout"] = torch.cuda.get_rng_state(self.device)
+        else:
+            states["dropout"] = torch.get_rng_state()
+        return states
+
+    def save(self) -> None:
+        self.ckpt.save(self.state, self.global_step,
+                       generators=self._generator_states())
+
+    def restore_latest(self) -> Optional[int]:
+        if self.ckpt is None or self.ckpt.latest_step() is None:
+            return None
+        step, gens = self.ckpt.restore(self.state)
+        self.generator.set_state(gens["train"].cpu())
+        if self.device.type == "cuda":
+            torch.cuda.set_rng_state(gens["dropout"].cpu(), self.device)
+        else:
+            torch.set_rng_state(gens["dropout"].cpu())
+        self.global_step = step
+        log.info("restored checkpoint at step %d", step)
+        return step
+
+    def train(self, epochs: Optional[int] = None) -> float:
+        """Run the epoch loop; Ctrl-C checkpoints before exiting."""
+        try:
+            return self._train(epochs)
+        except KeyboardInterrupt:
+            if self.ckpt is not None:
+                log.warning("interrupted: saving checkpoint at step %d",
+                            self.global_step)
+                self.save()
+            raise
+
+    def _train(self, epochs: Optional[int] = None) -> float:
+        tcfg = self.config.train
+        epochs = tcfg.num_train_epochs if epochs is None else epochs
+        last_loss = float("nan")
+        # resume continues the epoch sequence (data order seeds follow the
+        # epoch index), rather than replaying epoch 0
+        start_epoch = self.global_step // self.steps_per_epoch
+        if start_epoch >= epochs:
+            log.info("nothing to do: already at epoch %d of %d "
+                     "(use --epochs to extend)", start_epoch, epochs)
+            return last_loss
+        self._tput_mark = None
+        for epoch in range(start_epoch, epochs):
+            log.info("Starting epoch %d", epoch)
+            t_epoch = time.time()
+            pending = None
+            for batch in prefetch(self.dataset.batches(
+                    tcfg.batch_size, shuffle=True, seed=tcfg.seed + epoch)):
+                m = self._step_fn(self._to_device(batch), self.generator)
+                self.global_step += 1
+                pending = m
+                if self.global_step % self.log_every == 0:
+                    last_loss = self._pull_metrics(m)
+                    pending = None
+            if pending is not None:  # epoch tail between cadence points
+                last_loss = self._pull_metrics(pending)
+            self.metrics.add_scalar("epoch_time_s", time.time() - t_epoch,
+                                    self.global_step)
+            if self.eval_every and (epoch + 1) % self.eval_every == 0:
+                eval_loss = self.evaluate()
+                log.info("epoch %d eval loss: %f", epoch, eval_loss)
+            if self.ckpt is not None and (
+                    epoch % tcfg.save_per_epochs == 0
+                    or epoch == epochs - 1):
+                self.save()
+            self.metrics.flush()
+        return last_loss
+
+    def _pull_metrics(self, m) -> float:
+        """Pull one step's metrics to the host (the loop's device sync),
+        NaN-guard and log them, with the trainer's throughput since the
+        previous pull (host input, dispatch and device time together)."""
+        loss = float(m["loss"])
+        now = time.time()
+        metrics_now = {"loss": loss, "grad_norm": float(m["grad_norm"])}
+        finite_or_warn(metrics_now, self.global_step, log)
+        self.metrics.add_scalar("Loss/train", loss, self.global_step)
+        self.metrics.add_scalar("grad_norm", metrics_now["grad_norm"],
+                                self.global_step)
+        if self._tput_mark is not None:
+            t0, s0 = self._tput_mark
+            steps = self.global_step - s0
+            if steps > 0 and now > t0:
+                exs = steps * self.config.train.batch_size / (now - t0)
+                self.metrics.add_scalar("examples_per_s", exs,
+                                        self.global_step)
+                log.info("step %d: loss %.5f, %.1f examples/s",
+                         self.global_step, loss, exs)
+        self._tput_mark = (now, self.global_step)
+        return loss
+
+    def evaluate(self, dataset=None, seed: int = 0) -> float:
+        """Mean deterministic eval loss over a dataset (default: the train
+        set), with a fixed noise/timestep stream per batch index so losses
+        compare across checkpoints."""
+        dataset = dataset if dataset is not None else self.dataset
+        total, n = 0.0, 0
+        for i, batch in enumerate(dataset.batches(
+                self.config.train.batch_size)):
+            g = torch.Generator(self.device).manual_seed(seed * 1_000_003
+                                                         + i)
+            total += float(self._eval_fn(self._to_device(batch), g))
+            n += 1
+        if n == 0:
+            raise ValueError(
+                f"evaluate(): dataset yielded no batches at batch_size="
+                f"{self.config.train.batch_size} (len={len(dataset)})")
+        loss = total / n
+        self.metrics.add_scalar("Loss/eval", loss, self.global_step)
+        self.metrics.flush()
+        return loss

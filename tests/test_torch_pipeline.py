@@ -179,21 +179,49 @@ def test_cli_writes_wav(tmp_path, tiny_config):
 
 
 def test_port_runs_without_jax(tmp_path, tiny_config):
-    """A process that imports the port and runs the CPU slice never loads
-    jax or flax."""
+    """A process that imports the port, runs the CPU slice and a tiny train
+    step never loads jax, flax, optax or any module of the JAX package."""
     code = (
         "import sys\n"
         "from prompt_tts_tpu_torch.cli.synthesize import main\n"
+        "from prompt_tts_tpu_torch.cli.train import main as train\n"
         f"main(['--text', 'a b', '--out', {str(tmp_path / 'y.wav')!r},"
         f" '--steps', '1', '--device', 'cpu', '--dtype', 'bf16',"
         f" '--config_file', {tiny_config!r}])\n"
-        "bad = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]\n"
+        f"t = train(['--smoke', '--device', 'cpu', '--log_dir',"
+        f" {str(tmp_path / 'log')!r}])\n"
+        "assert t.global_step == 2\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'flax', 'optax', 'prompt_tts_tpu')]\n"
         "assert not bad, bad\n")
     root = str(pathlib.Path(__file__).resolve().parents[1])
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert (tmp_path / "y.wav").exists()
+
+
+def test_port_sources_import_no_jax():
+    """Statically: no module of the port, and not ``chip_smoke.py``,
+    imports jax, flax, optax or the JAX package ``prompt_tts_tpu``."""
+    import ast
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = sorted((root / "prompt_tts_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 30
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad += [f"{path.relative_to(root)}:{node.lineno} {n}"
+                    for n in names if n.split(".")[0] in
+                    ("jax", "flax", "optax", "prompt_tts_tpu")]
+    assert not bad, bad
 
 
 def test_packaging_names_the_port():
@@ -213,7 +241,12 @@ def test_packaging_names_the_port():
     globs = tool["setuptools"]["package-data"]["prompt_tts_tpu_torch"]
     shipped = {p for g in globs for p in port.glob(g)}
     assert set(port.glob("csrc/*.cu")) <= shipped
-    assert {p.name for p in shipped} >= {"attention.cu", "lstm.cu"}
+    assert {p.name for p in shipped} >= {"attention.cu", "attention_bwd.cu",
+                                          "lstm.cu"}
+    # the port's own copy of the CMU dictionary ships with its frontend
+    globs = tool["setuptools"]["package-data"]["prompt_tts_tpu_torch.frontend"]
+    assert any((port / "frontend").glob(g) for g in globs)
+    assert (port / "frontend/data/cmu_dictionary.gz").exists()
 
 
 def _eps_models(rng):
