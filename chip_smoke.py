@@ -10,8 +10,10 @@ Phases, each printed as one JSON object per line:
      the shapes its path gives it (max abs error against a stated
      tolerance; kernel, plain and library times by CUDA events; the least
      time the card could take, from the bytes and operations of the call).
-     The attention backward runs last: checked at B=4, then timed at the
-     batch the train slice used (32 unless it did not fit).
+     The LSTM at the decoder's B=4 and the encoder's B=32; the RVQ encode
+     inside the encode slice (its inputs are that slice's latents); the
+     attention backward last: checked at B=4, then timed, with the forward,
+     at the batch the train slice used (32 unless it did not fit).
   3. small: the port's synthesis on the card against the same synthesis on
      the CPU (plain versions): the full-width model at batch 1 and 2 DDIM
      steps, plus the codec, f32.
@@ -19,16 +21,25 @@ Phases, each printed as one JSON object per line:
      flagship ``ModelConfig()`` width, 4 requests, DDIM-50, bf16 denoiser,
      f32 decode, random seeded weights; checks the WAVs and codes and that
      the path launched every kernel, then times a warm repeat.
-  5. train_small: one f32 train step of the full-width model at batch 1,
+  5. encode_small: a 2 x 1.5 s f32 encode through the full-width codec on
+     the card and on the CPU: latents and codes compared.
+  6. train_small: one f32 train step of the full-width model at batch 1,
      dropout off, on the card (kernels) and on the CPU (plain versions),
      same weights, batch, noise and timesteps: loss, gradient norm and
      every gradient compared.
-  6. train_slice: ``python -m prompt_tts_tpu_torch.cli.train`` at
-     ``ModelConfig()``, bf16 over f32 parameters, batch 32, on a synthetic
-     code tar this script writes: 2 epochs (4 steps) with checkpoints, then
+  7. encode_slice: ``python -m prompt_tts_tpu_torch.cli.generate_codes
+     --batch_size 32`` on a wav tar this script writes (64 utterances of
+     2-12 s at 22.05 kHz, with transcripts): checks the code tar and that
+     the path launched the RVQ and LSTM kernels; then the RVQ kernel's
+     index contract and times on the slice's latents and on normal vectors,
+     and a warm ``CodecRunner.encode`` of 32 x 12 s timed by CUDA events.
+  8. train_slice: ``python -m prompt_tts_tpu_torch.cli.train`` at
+     ``ModelConfig()``, bf16 over f32 parameters, batch 32, on the code tar
+     the encode slice wrote: 2 epochs (4 steps) with checkpoints, then
      ``--resume`` for a third epoch; checks the losses, the resume, the
      launches of both attention kernels and the parameters' dtype, then
-     times warm steps and profiles one.
+     times warm steps and profiles one.  Audio -> codes -> training, all
+     on the card.
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises (non-zero exit); without CUDA it exits non-zero
 before any result.
@@ -48,6 +59,9 @@ import tarfile
 import tempfile
 import time
 
+# the card the encode phases drive (a name, so they can be rehearsed on
+# the CPU with the plain versions)
+DEVICE = "cuda"
 # one request's window: ModelConfig().sample_size 900 frames at 75 Hz
 AUDIO_S = 12.0
 SAMPLE_RATE = 24000
@@ -56,7 +70,9 @@ STEPS = 50
 # the flagship trainer's batch (tools/configs/flagship_chiprun.json); the
 # train slice steps down to 16, then 8, only if it does not fit
 TRAIN_BATCHES = (32, 16, 8)
-TRAIN_UTTERANCES = 64
+# the encode slice's wav tar, which the train slice then trains on:
+# LJSpeech's rate, 2-12 s clips, generate_codes' default batch
+ENCODE_UTTERANCES, ENCODE_SR, ENCODE_BATCH = 64, 22050, 32
 
 # Tolerances, kernel vs plain on the same inputs.
 # f32 attention: same math, f32 sums in another order over <= 900 keys.
@@ -74,6 +90,15 @@ BWD_RTOL_BF16 = 4e-3
 # LSTM: f32 both sides, gate sums in another order, 900 steps of a
 # contractive recurrence.
 LSTM_TOL = 1e-5
+# RVQ encode, kernel vs plain (cuBLAS, TF32 off): every vector whose
+# indices differ is a near-tie in f64 at its first differing layer
+# (prompt_tts_tpu_torch/ops/cuda/rvq.py:index_contract, 1e-5 of
+# (|r| + |e|)^2), and at most this share of the vectors differ.
+RVQ_MAX_DIFFER = 1e-3
+# An f32 encode, card vs CPU: latents through 16 conv layers and the 2-layer
+# LSTM, cuDNN's f32 algorithms against the CPU's: 1e-4 of
+# max(1, max |latent|); the codes may then differ at RVQ_MAX_DIFFER.
+ENC_TOL = 1e-4
 # One f32 train step, card vs CPU, TF32 off: the loss to 1e-4 (the model's
 # outputs agree to its 5e-4 contract and the MSE averages them), the global
 # gradient norm and every gradient tensor to 1e-3 in relative L2.  A tensor
@@ -170,7 +195,7 @@ def phase_card():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.load_all(("attention", "attention_bwd", "lstm"))
+    _build.load_all(("attention", "attention_bwd", "lstm", "rvq"))
     print(smi, flush=True)
     emit({"phase": "card", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
@@ -253,9 +278,13 @@ def phase_attention_bwd(smi, train_batch):
     """The backward kernel against the f32 plain backward at B=4 (f32 and
     bf16 inputs), then timed at the training batch in bf16 over one train
     step's 36 calls: kernel, plain, and the library's backward (SDPA
-    through autograd)."""
+    through autograd); and the forward kernel with the lse at the same
+    calls: kernel, plain and SDPA forward.  Returns the backward's and the
+    forward's sums."""
     import torch
-    from prompt_tts_tpu_torch.ops.attention import attention_bwd_plain
+    from prompt_tts_tpu_torch.ops.attention import (
+        attention_bwd_plain, attention_plain,
+    )
     from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
     from prompt_tts_tpu_torch.ops.cuda.attention_bwd import attention_bwd
     g = torch.Generator("cuda").manual_seed(1)
@@ -285,6 +314,8 @@ def phase_attention_bwd(smi, train_batch):
 
     step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
             "fwd_lse_ms": 0.0, "flop": 0, "bytes": 0}
+    fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0,
+           "bytes": 0}
     B, dtype = train_batch, torch.bfloat16
     for label, Tq, Tk, H, D, masked, n in attn_cases():
         q, k, v, bias = attn_inputs(g, B, Tq, Tk, H, D, masked, dtype)
@@ -292,6 +323,8 @@ def phase_attention_bwd(smi, train_batch):
         o, lse = flash_attention(q, k, v, bias, return_lse=True)
         fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, bias,
                                                  return_lse=True), 10)
+        fwd_plain_ms = cuda_ms(lambda: attention_plain(q, k, v, bias), 3)
+        fwd_lib_ms = cuda_ms(lambda: sdpa(q, k, v, bias), 10)
         ms = cuda_ms(lambda: attention_bwd(q, k, v, o, do, bias, lse,
                                            need_dbias=masked), 10)
         plain_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, o, do, bias),
@@ -312,6 +345,20 @@ def phase_attention_bwd(smi, train_batch):
               "case": label, "dtype": "bfloat16", "B": B, "calls": n,
               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
               "fwd_lse_ms": fwd_ms, **b, "card": smi})
+        # the forward with the lse: q, k, v in, o and the f32 lse out
+        fwd_flop = 4 * B * H * Tq * Tk * D
+        fwd_bytes = (size * 2 * B * H * D * (Tq + Tk) + 4 * B * H * Tq
+                     + (4 * B * Tk if masked else 0))
+        emit({"phase": "kernel_time", "kernel": "attention_fwd_lse",
+              "case": label, "dtype": "bfloat16", "B": B, "calls": n,
+              "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+              "library_ms": fwd_lib_ms,
+              **bound(fwd_flop, fwd_bytes, "bfloat16"), "card": smi})
+        for key, t in (("ms", fwd_ms), ("plain_ms", fwd_plain_ms),
+                       ("library_ms", fwd_lib_ms)):
+            fwd[key] += n * t
+        fwd["flop"] += n * fwd_flop
+        fwd["bytes"] += n * fwd_bytes
         for key, t in (("ms", ms), ("plain_ms", plain_ms),
                        ("library_ms", lib_ms), ("fwd_lse_ms", fwd_ms)):
             step[key] += n * t
@@ -320,18 +367,20 @@ def phase_attention_bwd(smi, train_batch):
         del q, k, v, do, o, lse, leaves, out
         torch.cuda.empty_cache()
     b = bound(step.pop("flop"), step.pop("bytes"), "bfloat16")
-    return {"max_abs_err": err_all, **step, "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"],
-            "unit": f"one train step's {ATTN_CALLS} calls, bf16, B={B}"}
+    fb = bound(fwd.pop("flop"), fwd.pop("bytes"), "bfloat16")
+    unit = f"one train step's {ATTN_CALLS} calls, bf16, B={B}"
+    return ({"max_abs_err": err_all, **step, "bound_ms": b["bound_ms"],
+             "bound_by": b["bound_by"], "unit": unit},
+            {**fwd, "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
+             "unit": unit + ", with the lse"})
 
 
-def phase_lstm(smi):
+def _lstm_case(smi, B, g):
     import torch
     from prompt_tts_tpu_torch.ops.cuda.lstm import (
         lstm_recurrence, lstm_recurrence_plain,
     )
-    g = torch.Generator("cuda").manual_seed(2)
-    T, B, H = 900, N_REQUESTS, 512
+    T, H = 900, 512
     with torch.no_grad():
         x = torch.randn(T, B, 4 * H, generator=g, device="cuda") * 0.5
         w = torch.randn(H, 4 * H, generator=g, device="cuda") * H ** -0.5
@@ -362,10 +411,20 @@ def phase_lstm(smi):
           "library_note": "cuDNN nn.LSTM with w_ih = I: one extra 4Hx4H "
                           "input projection", **b, "ok": ok, "card": smi})
     if not ok:
-        raise AssertionError(f"lstm: max abs err {err} > {LSTM_TOL}")
+        raise AssertionError(f"lstm B={B}: max abs err {err} > {LSTM_TOL}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "unit": f"one layer, T={T} B={B} H={H}"}
+
+
+def phase_lstm(smi):
+    """The LSTM kernel at the decoder's batch (the synthesis slice's 4) and
+    at the encoder's (the encode slice's 32)."""
+    import torch
+    g = torch.Generator("cuda").manual_seed(2)
+    out = _lstm_case(smi, N_REQUESTS, g)
+    out["encoder_b32"] = _lstm_case(smi, ENCODE_BATCH, g)
+    return out
 
 
 def phase_small(smi):
@@ -421,6 +480,7 @@ def phase_slice(smi):
     from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
     from prompt_tts_tpu_torch.ops.cuda.attention_bwd import attention_bwd
     from prompt_tts_tpu_torch.ops.cuda.lstm import lstm_recurrence
+    from prompt_tts_tpu_torch.ops.cuda.rvq import rvq_encode
     from prompt_tts_tpu_torch.pipeline import Synthesizer
     with tempfile.TemporaryDirectory() as tmp:
         argv = sum((["--text", t] for t in TEXTS), []) + [
@@ -428,21 +488,22 @@ def phase_slice(smi):
             "--device", "cuda", "--dtype", "bf16", "--seed", "0"]
         flash_attention.launches = 0
         attention_bwd.launches = 0
-        lstm_recurrence.launches = 0
+        lstm_recurrence.launches = rvq_encode.launches = 0
         t0 = time.perf_counter()
         paths, wavs, codes = cli.main(argv)
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         launches = {"attention_fwd": flash_attention.launches,
                     "attention_bwd": attention_bwd.launches,
-                    "lstm": lstm_recurrence.launches}
+                    "lstm": lstm_recurrence.launches,
+                    "rvq_encode": rvq_encode.launches}
         files = []
         for p in paths:
             with wave.open(p, "rb") as w:
                 files.append((w.getframerate(), w.getnframes()))
     n_samples = int(AUDIO_S * SAMPLE_RATE)
     want = {"attention_fwd": TEXT_LAYERS + 32 * STEPS, "attention_bwd": 0,
-            "lstm": 2}
+            "lstm": 2, "rvq_encode": 0}
     checks = {
         "wav_files": files == [(SAMPLE_RATE, n_samples)] * N_REQUESTS,
         "wav_shape": wavs.shape == (N_REQUESTS, n_samples),
@@ -478,6 +539,208 @@ def phase_slice(smi):
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "card": smi})
     return launches
+
+
+def phase_encode_small(smi):
+    """A 2 x 1.5 s f32 encode through the full-width codec (same seeded
+    weights) on the card and on the CPU: latents and codes."""
+    import torch
+    from prompt_tts_tpu_torch.pipeline import CodecRunner
+    runners = {d: CodecRunner(d) for d in ("cpu", DEVICE)}
+    wav = torch.randn(2, 36000, generator=torch.Generator().manual_seed(9))
+    lat, codes = {}, {}
+    for d, r in runners.items():
+        with torch.no_grad():
+            lat[d] = r.codec.encoder(wav.to(d)[..., None]).cpu()
+        codes[d] = r.encode(wav).cpu()
+    scale = max(1.0, lat["cpu"].abs().max().item())
+    err = (lat[DEVICE] - lat["cpu"]).abs().max().item()
+    flips = (codes[DEVICE] != codes["cpu"]).float().mean().item()
+    checks = {"latents": err <= ENC_TOL * scale,
+              "codes_shape": tuple(codes[DEVICE].shape) == (2, 8, 113),
+              "codes_range": bool(codes[DEVICE].min() >= 0
+                                  and codes[DEVICE].max() <= 1023),
+              "code_flips": flips <= RVQ_MAX_DIFFER}
+    emit({"phase": "encode_small", "what": "EnCodec 24 kHz encode 2 x 1.5 s "
+          "f32, cuda vs cpu", "latent_max_abs_err": err,
+          "latent_tol": ENC_TOL * scale, "code_flip_share": flips,
+          "checks": checks, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"encode_small checks failed: {checks}")
+
+
+def write_wav_tar(path, n, seed=0):
+    """A corpus tar as generate_codes takes it: ``wavs/<id>.wav`` (PCM16 at
+    22.05 kHz, 2-12 s: a harmonic tone with vibrato, plus noise) and
+    ``wavs/<id>.txt``.  Returns each clip's length in samples."""
+    import numpy as np
+    from prompt_tts_tpu_torch.utils.wav import write_wav
+    rng = np.random.default_rng(seed)
+
+    def add(tf, name, data):
+        info = tarfile.TarInfo(name)
+        info.size = len(data)
+        tf.addfile(info, io.BytesIO(data))
+
+    lengths = {}
+    with tarfile.open(path, "w") as tf:
+        for i in range(n):
+            n_s = int(rng.uniform(2.0, 12.0) * ENCODE_SR)
+            t = np.arange(n_s) / ENCODE_SR
+            f0 = rng.uniform(90.0, 250.0) * (1 + 0.02 * np.sin(
+                2 * np.pi * rng.uniform(4.0, 7.0) * t))
+            phase = 2 * np.pi * np.cumsum(f0) / ENCODE_SR
+            audio = sum(np.sin(k * phase) / k for k in range(1, 9))
+            audio = 0.5 * audio / np.abs(audio).max()
+            audio += 0.01 * rng.standard_normal(n_s)
+            buf = io.BytesIO()
+            write_wav(buf, audio.astype(np.float32), ENCODE_SR)
+            add(tf, f"wavs/utt{i:03d}.wav", buf.getvalue())
+            add(tf, f"wavs/utt{i:03d}.txt", TEXTS[i % len(TEXTS)].encode())
+            lengths[f"utt{i:03d}"] = n_s
+    return lengths
+
+
+def phase_rvq(smi, emb, cb):
+    """The RVQ kernel against its plain version (cuBLAS, TF32 off) at
+    ``[32, 900, 128] x [8, 1024, 128]``: on the encode slice's latents
+    ``emb`` and on seeded normal vectors of the same shape, with the
+    slice's codebooks ``cb``; then timed on the latents."""
+    import torch
+    from prompt_tts_tpu_torch.ops.cuda.rvq import (
+        index_contract, rvq_encode, rvq_encode_plain,
+    )
+    n_q = cb.shape[0]
+    B, T, D = emb.shape
+    g = torch.Generator(DEVICE).manual_seed(10)
+    normal = torch.randn(emb.shape, generator=g, device=DEVICE)
+    res = {}
+    for name, x in (("latents", emb), ("normal", normal)):
+        got = rvq_encode(x, cb)
+        ref = rvq_encode_plain(x, cb)
+        torch.cuda.synchronize()
+        r = index_contract(x, cb, got, ref)
+        r["ok"] = (r["violations"] == 0
+                   and r["differ"] <= RVQ_MAX_DIFFER * r["vectors"]
+                   and tuple(got.shape) == (B, n_q, T))
+        emit({"phase": "kernel", "kernel": "rvq_encode", "case": name,
+              "shape": f"[{B}, {T}, {D}] x [{n_q}, {cb.shape[1]}, {D}]",
+              **r, "max_differ_share": RVQ_MAX_DIFFER, "card": smi})
+        if not r["ok"]:
+            raise AssertionError(f"rvq_encode {name}: {r}")
+        res[name] = r
+
+    def cdist_loop(x):
+        """The library-call comparator: the 8-layer cascade as cdist +
+        argmin, gather and subtract (no one PyTorch call computes it)."""
+        r = x.reshape(-1, D)
+        for e in cb:
+            idx = torch.cdist(r, e).argmin(-1)
+            r = r - e[idx]
+
+    ms = cuda_ms(lambda: rvq_encode(emb, cb), 20)
+    plain_ms = cuda_ms(lambda: rvq_encode_plain(emb, cb), 5)
+    lib_ms = cuda_ms(lambda: cdist_loop(emb), 5)
+    K = cb.shape[1]
+    flop = 2 * B * T * n_q * K * D
+    nbytes = 4 * (B * T * D + n_q * K * D + B * n_q * T)
+    b = bound(flop, nbytes, "float32")
+    emit({"phase": "kernel_time", "kernel": "rvq_encode", "case": "latents",
+          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "library_note": "8 x (torch.cdist + argmin, gather, subtract)",
+          **b, "card": smi})
+    return {"max_abs_err": max(r["max_score_gap"] for r in res.values()),
+            "max_abs_err_note": "largest f64 score gap between the kernel's "
+                                "and the plain version's chosen codes",
+            "differ": {k: r["differ"] for k, r in res.items()},
+            "vectors": B * T, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"],
+            "unit": f"one call, [{B}, {T}, {D}] x [{n_q}, {K}, {D}], f32"}
+
+
+def phase_encode_slice(smi, tmp):
+    """The encode CLI at batch 32 x 12 s; returns the launches it made, the
+    RVQ kernel's summary and the code tar it wrote."""
+    import math
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.cli import generate_codes as cli
+    from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
+    from prompt_tts_tpu_torch.ops.cuda.attention_bwd import attention_bwd
+    from prompt_tts_tpu_torch.ops.cuda.lstm import lstm_recurrence
+    from prompt_tts_tpu_torch.ops.cuda.rvq import rvq_encode
+    from prompt_tts_tpu_torch.pipeline import CodecRunner, full_f32
+    tar = os.path.join(tmp, "wavs.tar")
+    lengths = write_wav_tar(tar, ENCODE_UTTERANCES)
+    argv = ["--input_file", tar, "--batch_size", str(ENCODE_BATCH),
+            "--device", DEVICE]
+    flash_attention.launches = attention_bwd.launches = 0
+    lstm_recurrence.launches = rvq_encode.launches = 0
+    t0 = time.perf_counter()
+    out_file, n_items, seconds = cli.main(argv)
+    cli_s = time.perf_counter() - t0
+    launches = {"attention_fwd": flash_attention.launches,
+                "attention_bwd": attention_bwd.launches,
+                "lstm": lstm_recurrence.launches,
+                "rvq_encode": rvq_encode.launches}
+    n_batches = math.ceil(ENCODE_UTTERANCES / ENCODE_BATCH)
+    want = {"attention_fwd": 0, "attention_bwd": 0, "lstm": 2 * n_batches,
+            "rvq_encode": n_batches}
+    max_samples = int(AUDIO_S * SAMPLE_RATE)
+    with tarfile.open(out_file) as tf:
+        got = {m.name: tf.extractfile(m).read() for m in tf.getmembers()}
+    shapes_ok = range_ok = lens_ok = texts_ok = True
+    for i, (stem, n_s) in enumerate(lengths.items()):
+        codes = np.load(io.BytesIO(got.get(f"{stem}.npy", b"")))
+        shapes_ok &= codes.shape == (8, 900) and codes.dtype == np.int64
+        range_ok &= bool(codes.min() >= 0 and codes.max() <= 1023)
+        # the resampler's output length, cut at the 12 s window
+        n24 = min(math.ceil(n_s * SAMPLE_RATE / ENCODE_SR), max_samples)
+        lens_ok &= got.get(f"{stem}.len.txt") == str(
+            float(math.ceil(n24 / 320))).encode()
+        texts_ok &= got.get(f"{stem}.txt") == TEXTS[i % len(TEXTS)].encode()
+    checks = {"items": n_items == ENCODE_UTTERANCES == len(got) // 3,
+              "codes_shape": shapes_ok, "codes_range": range_ok,
+              "len_txt": lens_ok, "transcripts": texts_ok,
+              "launches": launches == want}
+    emit({"phase": "encode_slice", "what": f"cli.generate_codes "
+          f"--batch_size {ENCODE_BATCH}, {ENCODE_UTTERANCES} wavs of 2-12 s "
+          f"at {ENCODE_SR} Hz -> [8, 900] codes", "checks": checks,
+          "launches": launches, "want_launches": want, "cli_wall_s": cli_s,
+          **seconds, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"encode slice checks failed: {checks}")
+
+    # the RVQ kernel on the slice's own latents: the first batch's wavs
+    with tarfile.open(tar) as tf:
+        wavs, _, _ = next(cli.iter_batches(tf, tf.getmembers(), ENCODE_BATCH,
+                                           int(AUDIO_S)))
+    runner = CodecRunner(DEVICE)
+    wav = torch.from_numpy(wavs).to(DEVICE)
+    with torch.no_grad(), full_f32():
+        emb = runner.codec.encoder(wav[..., None]).contiguous()
+        rvq = phase_rvq(smi, emb, runner.codec.codebooks[:8].detach())
+    del emb
+
+    # steady state: a warm encode of one batch, by CUDA events
+    runner.encode(wav)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: runner.encode(wav), 3)
+    emit({"phase": "encode_warm", "what": f"CodecRunner.encode "
+          f"[{ENCODE_BATCH}, {max_samples}] f32 (TF32 off)", "device_ms": ms,
+          "audio_s_per_device_s": ENCODE_BATCH * AUDIO_S / (ms / 1e3),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "host_read_resample_s": seconds["host_s"],
+          "cli_encode_s": seconds["encode_s"], "card": smi})
+    emit({"phase": "encode_profile", "what": f"one CodecRunner.encode "
+          f"[{ENCODE_BATCH}, {max_samples}]",
+          **profile_step(lambda: runner.encode(wav)), "card": smi})
+    del runner, wav
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rvq, out_file
 
 
 def phase_train_small(smi):
@@ -567,26 +830,6 @@ def phase_train_small(smi):
         raise AssertionError(f"train_small checks failed: {checks}")
 
 
-def write_code_tar(path, n, frames, seed=0):
-    """A code tar in generate_codes' layout: <id>.npy [8, frames] codes,
-    <id>.txt, <id>.len.txt."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-
-    def add(tf, name, data):
-        info = tarfile.TarInfo(name)
-        info.size = len(data)
-        tf.addfile(info, io.BytesIO(data))
-
-    with tarfile.open(path, "w") as tf:
-        for i in range(n):
-            buf = io.BytesIO()
-            np.save(buf, rng.integers(0, 1024, (8, frames)).astype(np.int64))
-            add(tf, f"utt{i:03d}.npy", buf.getvalue())
-            add(tf, f"utt{i:03d}.txt", TEXTS[i % len(TEXTS)].encode())
-            add(tf, f"utt{i:03d}.len.txt", str(frames).encode())
-
-
 def _logged(log_dir, tag):
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -596,6 +839,8 @@ def _logged(log_dir, tag):
 def _kernel_class(name):
     for cls, pat in (("attention_fwd", r"attn_fwd"),
                      ("attention_bwd", r"attn_bwd"),
+                     ("lstm", r"lstm_step"),
+                     ("rvq_encode", r"rvq_(prep|encode)"),
                      ("conv", r"fprop|dgrad|wgrad|conv|cudnn|nchwToNhwc|"
                               r"nhwcToNchw"),
                      ("gemm", r"gemm|nvjet|xmma|cutlass|sm90_"),
@@ -607,7 +852,8 @@ def _kernel_class(name):
 
 
 def profile_step(step):
-    """Device time by kernel class of one train step (torch.profiler)."""
+    """Device time by kernel class of one call of ``step``
+    (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -634,9 +880,9 @@ def profile_step(step):
             "by_class_ms": by_class, "top": top[:12]}
 
 
-def phase_train_slice(smi):
-    """The train CLI at full width; returns the launches of its runs and
-    the batch it used."""
+def phase_train_slice(smi, tar):
+    """The train CLI at full width on the code tar ``tar``; returns the
+    launches of its runs and the batch it used."""
     import numpy as np
     import torch
     from prompt_tts_tpu_torch.cli import train as cli
@@ -645,19 +891,19 @@ def phase_train_slice(smi):
         LAUNCHES_PER_CALL, attention_bwd,
     )
     from prompt_tts_tpu_torch.ops.cuda.lstm import lstm_recurrence
+    from prompt_tts_tpu_torch.ops.cuda.rvq import rvq_encode
 
     def counts():
         return {"attention_fwd": flash_attention.launches,
                 "attention_bwd": attention_bwd.launches,
-                "lstm": lstm_recurrence.launches}
+                "lstm": lstm_recurrence.launches,
+                "rvq_encode": rvq_encode.launches}
 
     def zero():
         flash_attention.launches = attention_bwd.launches = 0
-        lstm_recurrence.launches = 0
+        lstm_recurrence.launches = rvq_encode.launches = 0
 
     with tempfile.TemporaryDirectory() as tmp:
-        tar = os.path.join(tmp, "codes.tar")
-        write_code_tar(tar, TRAIN_UTTERANCES, 900)
         ckpt, logs = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
         trainer = None
         for batch in TRAIN_BATCHES:
@@ -696,10 +942,10 @@ def phase_train_slice(smi):
         losses = _logged(logs, "Loss/train")
         norms = _logged(logs, "grad_norm")
         saved = trainer.ckpt.all_steps()
-        per_epoch = TRAIN_UTTERANCES // batch
+        per_epoch = ENCODE_UTTERANCES // batch
         want1 = {"attention_fwd": ATTN_CALLS * 2 * per_epoch,
                  "attention_bwd": LAUNCHES_PER_CALL * ATTN_CALLS * 2
-                 * per_epoch, "lstm": 0}
+                 * per_epoch, "lstm": 0, "rvq_encode": 0}
         want2 = {k: v // 2 for k, v in want1.items()}
         params = list(trainer.model.parameters())
         checks = {
@@ -716,8 +962,9 @@ def phase_train_slice(smi):
                 == torch.float32 for p in params),
         }
         emit({"phase": "train_slice", "what": f"cli.train ModelConfig() "
-              f"--bf16 --batch_size {batch}, {TRAIN_UTTERANCES} utterances "
-              f"x 900 frames: 2 epochs, then --resume to 3",
+              f"--bf16 --batch_size {batch}, the encode slice's "
+              f"{ENCODE_UTTERANCES} utterances x 900 frames: 2 epochs, then "
+              f"--resume to 3",
               "checks": checks, "launches_first": run1, "want_first": want1,
               "launches_resume": run2, "want_resume": want2,
               "loss": losses, "grad_norm": norms, "checkpoints": saved,
@@ -770,14 +1017,18 @@ def main():
     synth = phase_slice(smi)
     with full_f32():
         phase_small(smi)
+        phase_encode_small(smi)
         phase_train_small(smi)
-    train, batch = phase_train_slice(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        encode, rvq, codes_tar = phase_encode_slice(smi, tmp)
+        train, batch = phase_train_slice(smi, codes_tar)
     with full_f32():
-        bwd = phase_attention_bwd(smi, batch)
-    launches = {k: synth[k] + train[k] for k in synth}
+        bwd, fwd["train_shapes"] = phase_attention_bwd(smi, batch)
+    paths = {k: {"synthesize": synth[k], "train": train[k],
+                 "encode": encode[k]} for k in synth}
+    launches = {k: sum(p.values()) for k, p in paths.items()}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the paths never ran: {launches}")
-    paths = {k: {"synthesize": synth[k], "train": train[k]} for k in synth}
     emit({"kernels": [
         {"name": "attention_fwd", "route": "cuda",
          "source": "prompt_tts_tpu_torch/csrc/attention.cu",
@@ -794,6 +1045,11 @@ def main():
          "replaces": "prompt_tts_tpu/ops/pallas/lstm.py:81",
          "launches": launches["lstm"], "launches_by_path": paths["lstm"],
          **lstm},
+        {"name": "rvq_encode", "route": "cuda",
+         "source": "prompt_tts_tpu_torch/csrc/rvq.cu",
+         "replaces": "prompt_tts_tpu/ops/pallas/rvq.py:75",
+         "launches": launches["rvq_encode"],
+         "launches_by_path": paths["rvq_encode"], **rvq},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,1 @@
-"""EnCodec 24 kHz codec, decode side (RVQ dequantize + SEANet decoder)."""
+"""EnCodec 24 kHz codec: SEANet encoder + residual VQ, and the decoder."""

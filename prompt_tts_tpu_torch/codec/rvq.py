@@ -1,12 +1,20 @@
-"""Residual vector quantizer, decode side.
+"""Residual vector quantizer: nearest-codebook search + dequantization.
 
-Port of ``rvq_decode`` / ``codebook_decode`` of
-``prompt_tts_tpu/codec/rvq.py``.  The sum runs layer by layer in the JAX
-scan's order, so decoded vectors are bit-identical.  Encode (and its TPU
-kernel ``rvq_encode_fused``) is not ported yet.
+Port of ``prompt_tts_tpu/codec/rvq.py``.  Semantics are EnCodec's
+euclidean codebook: score = -(|x|^2 - 2 x.E^T + |E|^2), argmax over the
+codes (the first index wins ties), residual peeled per layer in f32.
+``rvq_encode`` is the hand-written kernel on a CUDA tensor and the plain
+per-layer loop on a CPU tensor (``ops/cuda/rvq.py``).  The decode sum runs
+layer by layer in the JAX scan's order, so decoded vectors are
+bit-identical.
 """
 
 import torch
+
+from prompt_tts_tpu_torch.ops.cuda.rvq import codebook_quantize, rvq_encode
+
+__all__ = ["codebook_quantize", "codebook_decode", "rvq_encode",
+           "rvq_decode"]
 
 
 def codebook_decode(indices: torch.Tensor,

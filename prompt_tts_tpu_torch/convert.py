@@ -72,11 +72,8 @@ def model_state_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
 
 def codec_state_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     """``EncodecCodec`` params (JAX) -> the port's ``EncodecCodec``
-    state_dict.  The encoder subtree is dropped by name: the port holds the
-    decode side only."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
-    return _convert({k: v for k, v in tree.items() if k != "encoder"})
+    state_dict: encoder, decoder and codebooks."""
+    return _convert(tree)
 
 
 def _find_adam(tree) -> Optional[object]:

@@ -36,6 +36,7 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     sentinel = object()
     stop = threading.Event()
+    errors = []
 
     def worker():
         try:
@@ -43,11 +44,18 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
                 if stop.is_set():
                     break
                 q.put(item)
+        except Exception as e:   # raised again in the consumer
+            errors.append(e)
         finally:
-            try:
-                q.put_nowait(sentinel)
-            except queue.Full:
-                pass
+            # the consumer waits for the sentinel, so it must arrive even
+            # when the queue is full; only a consumer that has gone
+            # (stop set) no longer needs it
+            while not stop.is_set():
+                try:
+                    q.put(sentinel, timeout=0.1)
+                    break
+                except queue.Full:
+                    pass
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()
@@ -55,6 +63,8 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
         while True:
             item = q.get()
             if item is sentinel:
+                if errors:
+                    raise errors[0]
                 break
             yield item
     finally:

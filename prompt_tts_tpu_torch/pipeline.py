@@ -103,7 +103,8 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 class CodecRunner:
-    """The f32 EnCodec decoder on one device."""
+    """The f32 EnCodec codec on one device: encode and decode, with TF32
+    off."""
 
     def __init__(self, device, codec_state: Optional[dict] = None):
         self.device = torch.device(device)
@@ -121,6 +122,14 @@ class CodecRunner:
         codes = torch.as_tensor(codes, device=self.device)
         with full_f32():
             return self.codec.decode(codes)
+
+    @torch.no_grad()
+    def encode(self, wav) -> torch.Tensor:
+        """wav ``[B, T]`` f32 @ 24 kHz -> int32 codes ``[B, 8, ceil(T/320)]``
+        (6 kbps)."""
+        wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
+        with full_f32():
+            return self.codec.encode(wav)
 
 
 class Synthesizer:
@@ -196,3 +205,12 @@ class Synthesizer:
         if return_codes:
             return wav, codes.cpu().numpy()
         return wav
+
+    def decode_codes(self, codes) -> torch.Tensor:
+        """int codes ``[B, n_q, T]`` -> wav (the decode_codec tool path)."""
+        return self.codec_runner.decode(codes)
+
+    def encode_audio(self, wav) -> torch.Tensor:
+        """wav ``[B, T]`` @ 24 kHz -> int codes ``[B, 8, ceil(T/320)]``
+        (6 kbps)."""
+        return self.codec_runner.encode(wav)

@@ -1,5 +1,7 @@
 """The codec decode: the PyTorch port against the JAX package, in f32.
 
+(The encode side is in ``test_torch_encode.py`` and ``test_torch_rvq.py``.)
+
 The full-width EnCodec 24 kHz decoder over 16 frames: the JAX param tree
 (shapes from ``EncodecCodec.init``) is filled from a numpy seed, loaded into
 the port through ``codec_state_from_jax``, and both decode the same codes.
@@ -18,7 +20,7 @@ import jax.numpy as jnp
 from prompt_tts_tpu.codec import EncodecCodec as JaxCodec
 from prompt_tts_tpu.codec.layers import reflect_pad as jax_reflect_pad
 from prompt_tts_tpu.codec.rvq import rvq_decode as jax_rvq_decode
-from prompt_tts_tpu_torch.codec.encodec import EncodecCodec
+from prompt_tts_tpu_torch.codec.encodec import EncodecCodec, EncodecConfig24k
 from prompt_tts_tpu_torch.codec.layers import reflect_pad
 from prompt_tts_tpu_torch.codec.rvq import rvq_decode
 from prompt_tts_tpu_torch.convert import codec_state_from_jax
@@ -84,7 +86,28 @@ def test_reflect_pad_matches(T, left, right):
 
 
 def test_converter_drops_only_the_encoder(codec_pair):
+    """The converter now drops nothing: the port has the encoder too, and
+    every leaf of the JAX tree, the encoder's included, lands in it."""
     _, params, port = codec_pair
     state = codec_state_from_jax(params)
     assert set(state) == set(port.state_dict())
-    assert not any(k.startswith("encoder") for k in state)
+    n_leaves = len(jax.tree_util.tree_leaves(params))
+    assert len(state) == n_leaves
+    assert sum(k.startswith("encoder.") for k in state) == len(
+        jax.tree_util.tree_leaves(params["params"]["encoder"]))
+
+
+class TestStructuralConstants:
+    """tests/test_codec_vs_torch.py::TestStructuralConstants on the port's
+    copy of the config."""
+
+    def test_hop_and_frame_rate(self):
+        cfg = EncodecConfig24k()
+        assert cfg.hop_length == 320
+        assert cfg.frame_rate == 75
+
+    def test_bandwidth_to_n_q(self):
+        cfg = EncodecConfig24k()
+        assert cfg.num_quantizers_for_bandwidth(6.0) == 8
+        assert cfg.num_quantizers_for_bandwidth(1.5) == 2
+        assert cfg.num_quantizers_for_bandwidth(24.0) == 32

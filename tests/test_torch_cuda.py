@@ -30,8 +30,11 @@ from prompt_tts_tpu_torch.ops.cuda.attention_bwd import (
 from prompt_tts_tpu_torch.ops.cuda.lstm import (
     lstm_recurrence, lstm_recurrence_plain,
 )
+from prompt_tts_tpu_torch.ops.cuda.rvq import (
+    index_contract, rvq_encode, rvq_encode_plain,
+)
 from prompt_tts_tpu_torch.pipeline import (
-    Synthesizer, full_f32, latents_to_codes, random_init_,
+    CodecRunner, Synthesizer, full_f32, latents_to_codes, random_init_,
 )
 from prompt_tts_tpu_torch.train.state import TrainState
 from prompt_tts_tpu_torch.train.step import make_loss_fn, make_train_step
@@ -62,6 +65,14 @@ BWD_TOL = 2e-5
 # f32 ulp is ~1e-3, so both sides recompute p = exp(s + bias - lse) with
 # ~1e-3 relative rounding; they agree to that, and stay finite.
 BWD_TOL_ALL_MASKED = 5e-3
+# RVQ kernel vs plain (cuBLAS, TF32 off): every vector whose indices differ
+# is a near-tie at its first differing layer (ops/cuda/rvq.py:
+# index_contract), and at most this share of the vectors differ.
+RVQ_MAX_DIFFER = 1e-3
+# An f32 encode on the card against the CPU: latents through 16 conv layers
+# and the 2-layer LSTM, cuDNN's f32 algorithms against the CPU's, 1e-4 of
+# max(1, max |latent|); the codes then differ at most at that share.
+ENC_TOL = 1e-4
 # One f32 train step on the card against the CPU (TF32 off): the loss to
 # the model-level contract, the gradients in relative L2 per tensor (a
 # tensor whose gradient is zero in exact arithmetic, a bias in front of a
@@ -159,9 +170,10 @@ def test_attention_kernel_on_every_card(dev):
                                    atol=ATTN_TOL_F32, rtol=0)
 
 
-@pytest.mark.parametrize("B,H", [(1, 32), (4, 512), (9, 64)])
+@pytest.mark.parametrize("B,H", [(1, 32), (4, 512), (9, 64), (32, 512)])
 def test_lstm_kernel_matches_plain(dev, B, H):
-    """B = 9 takes two passes over the kernel's 8-row batch tile."""
+    """B = 9 takes two passes over the kernel's 8-row batch tile; B = 32,
+    the encoder's batch, four."""
     g = torch.Generator(dev).manual_seed(1)
     T = 60
     x = torch.randn(T, B, 4 * H, generator=g, device=dev) * 0.5
@@ -372,3 +384,80 @@ def test_train_step_on_card_matches_cpu(dev):
             assert err <= ZERO_GRAD * gn, n
         else:
             assert err <= TRAIN_GRAD_RTOL * ref.norm().item(), n
+
+
+def _rvq_inputs(dev, B, T, n_q, seed=0, K=1024, D=128):
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(B, T, D, generator=g, device=dev) * 2.0
+    cb = torch.randn(n_q, K, D, generator=g, device=dev)
+    return x, cb
+
+
+@pytest.mark.parametrize("n_q", [1, 8, 32])
+def test_rvq_kernel_keeps_the_index_contract(dev, n_q):
+    """Ragged N (3 x 333, 5 x 1, 1 x 64 vectors), K = 1024, D = 128."""
+    for B, T in ((3, 333), (5, 1), (1, 64)):
+        x, cb = _rvq_inputs(dev, B, T, n_q, seed=n_q + T)
+        got = rvq_encode(x, cb)
+        with full_f32():
+            ref = rvq_encode_plain(x, cb)
+        torch.cuda.synchronize()
+        assert got.shape == (B, n_q, T) and got.dtype == torch.int32
+        r = index_contract(x, cb, got, ref)
+        assert r["violations"] == 0, r
+        assert r["differ"] <= RVQ_MAX_DIFFER * B * T + 1, r
+
+
+def test_rvq_kernel_first_index_wins(dev):
+    """Duplicated codes tie exactly: the kernel takes the lowest index,
+    wherever in the 1024 codes (and its 64-code tiles) the copies sit."""
+    x, cb = _rvq_inputs(dev, 2, 50, 2, seed=3)
+    for dup in (700, 64, 1023):
+        cb[:, dup] = cb[:, 5]
+        cb[:, dup - 1] = cb[:, 600]
+    x[0, :10] = cb[0, 5]       # copies at 64, 700, 1023
+    x[1, :10] = cb[0, 600]     # copies at 63, 699, 1022: 63 is the lowest
+    got = rvq_encode(x, cb).cpu()
+    assert (got[0, 0, :10] == 5).all() and (got[1, 0, :10] == 63).all()
+    ref = rvq_encode_plain(x.cpu(), cb.cpu())
+    assert index_contract(x.cpu(), cb.cpu(), got, ref)["violations"] == 0
+
+
+def test_rvq_wrapper_counts_and_checks(dev):
+    x, cb = _rvq_inputs(dev, 2, 10, 2)
+    before = rvq_encode.launches
+    rvq_encode(x, cb)
+    assert rvq_encode.launches == before + 1
+    bad = {
+        "float32": (x.double(), cb.double()),
+        "contiguous": (x.transpose(0, 1).contiguous().transpose(0, 1), cb),
+        "D = 128": (x[..., :64].contiguous(), cb[..., :64].contiguous()),
+        "multiple of 64": (x, cb[:, :1000].contiguous()),
+        "codebooks on cpu": (x, cb.cpu()),
+        "codebook dim": (x, cb[..., :8].contiguous()),
+    }
+    for match, args in bad.items():
+        with pytest.raises(ValueError, match=match):
+            rvq_encode(*args)
+    assert rvq_encode.launches == before + 1
+
+
+def test_encode_on_card_matches_cpu(dev):
+    """A small f32 encode (2 x 1.5 s) through the codec on both devices:
+    latents within ENC_TOL, codes differing at no more than RVQ_MAX_DIFFER
+    of the entries, the RVQ and LSTM kernels launched once per call."""
+    runners = {d: CodecRunner(d) for d in ("cpu", "cuda")}
+    wav = torch.randn(2, 36000, generator=torch.Generator().manual_seed(9))
+    lat, codes = {}, {}
+    for d, r in runners.items():
+        with torch.no_grad(), full_f32():
+            lat[d] = r.codec.encoder(wav.to(d)[..., None]).cpu()
+        rvq_encode.launches = lstm_recurrence.launches = 0
+        codes[d] = r.encode(wav).cpu()
+        if d == "cuda":
+            assert rvq_encode.launches == 1 and lstm_recurrence.launches == 2
+    assert codes["cuda"].shape == (2, 8, 113)
+    scale = max(1.0, lat["cpu"].abs().max().item())
+    torch.testing.assert_close(lat["cuda"], lat["cpu"], atol=ENC_TOL * scale,
+                               rtol=0)
+    assert (codes["cuda"] != codes["cpu"]).float().mean() <= RVQ_MAX_DIFFER

@@ -2,8 +2,8 @@
 
 ``prompt_tts_tpu_torch.data.dataset`` against ``prompt_tts_tpu.data.dataset``
 on a tiny code tar written here, and the port's copies of ``config``,
-``frontend`` and ``utils.wav`` against the JAX package's originals: the same
-inputs must give exactly the same outputs.
+``frontend``, ``utils.wav`` and ``utils.resample`` against the JAX
+package's originals: the same inputs must give exactly the same outputs.
 """
 
 import dataclasses
@@ -17,10 +17,12 @@ import pytest
 from prompt_tts_tpu import config as jax_config
 from prompt_tts_tpu.data import dataset as jax_dataset
 from prompt_tts_tpu.frontend.tokenizer import Tokenizer as JaxTokenizer
+from prompt_tts_tpu.utils import resample as jax_resample
 from prompt_tts_tpu.utils import wav as jax_wav
 from prompt_tts_tpu_torch import config as port_config
 from prompt_tts_tpu_torch.data import dataset as port_dataset
 from prompt_tts_tpu_torch.frontend.tokenizer import Tokenizer
+from prompt_tts_tpu_torch.utils import resample as port_resample
 from prompt_tts_tpu_torch.utils import wav as port_wav
 
 SENTENCES = [
@@ -121,6 +123,34 @@ def test_collate_and_prefetch():
     gen.close()   # an abandoned consumer does not leak the worker
 
 
+def test_prefetch_delivers_the_end_to_a_slow_consumer():
+    """The producer finishes while the queue is full: the consumer still
+    gets every item and then the end (it used to wait forever), and an
+    error in the producer reaches the consumer."""
+    import threading
+    import time
+
+    def consume(items):
+        out = []
+        for x in port_dataset.prefetch(items, depth=1):
+            time.sleep(0.05)     # the producer is always ahead
+            out.append(x)
+        return out
+
+    def boom():
+        yield 1
+        raise OSError("truncated tar")
+
+    got = []
+    t = threading.Thread(target=lambda: got.append(consume(iter(range(4)))),
+                         daemon=True)
+    t.start()
+    t.join(timeout=20)
+    assert not t.is_alive() and got == [[0, 1, 2, 3]]
+    with pytest.raises(OSError, match="truncated"):
+        consume(boom())
+
+
 def test_tokenizer_copy_gives_the_same_ids():
     ours, theirs = Tokenizer(max_len=96), JaxTokenizer(max_len=96)
     for text in SENTENCES:
@@ -160,3 +190,16 @@ def test_wav_copy_writes_the_same_bytes(tmp_path):
     assert port_wav.pcm16_bytes(audio) == jax_wav.pcm16_bytes(audio)
     for n in (None, 480):
         assert port_wav.wav_header(n, 24000) == jax_wav.wav_header(n, 24000)
+
+
+@pytest.mark.parametrize("orig_sr,shape", [(22050, (3001,)), (16000, (777, 2)),
+                                           (48000, (960,)), (24000, (5,))])
+def test_resample_copy_gives_the_same_samples(orig_sr, shape):
+    """22.05 kHz (LJSpeech) up, 16 kHz up in two channels, 48 kHz down,
+    and the identity."""
+    audio = np.random.default_rng(orig_sr).uniform(-1, 1, shape).astype(
+        np.float32)
+    ours = port_resample.resample(audio, orig_sr, 24000)
+    theirs = jax_resample.resample(audio, orig_sr, 24000)
+    assert ours.dtype == theirs.dtype and ours.shape == theirs.shape
+    np.testing.assert_array_equal(ours, theirs)

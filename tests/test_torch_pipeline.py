@@ -179,18 +179,32 @@ def test_cli_writes_wav(tmp_path, tiny_config):
 
 
 def test_port_runs_without_jax(tmp_path, tiny_config):
-    """A process that imports the port, runs the CPU slice and a tiny train
-    step never loads jax, flax, optax or any module of the JAX package."""
+    """A process that imports the port, runs the CPU slice, a tiny train
+    step and an encode of a one-clip wav tar never loads jax, flax, optax
+    or any module of the JAX package."""
+    import io
+    import tarfile
+    from prompt_tts_tpu_torch.utils.wav import write_wav
+    buf = io.BytesIO()
+    write_wav(buf, np.zeros(2205, np.float32), 22050)
+    with tarfile.open(tmp_path / "w.tar", "w") as tf:
+        info = tarfile.TarInfo("u.wav")
+        info.size = len(buf.getvalue())
+        tf.addfile(info, io.BytesIO(buf.getvalue()))
     code = (
         "import sys\n"
         "from prompt_tts_tpu_torch.cli.synthesize import main\n"
         "from prompt_tts_tpu_torch.cli.train import main as train\n"
+        "from prompt_tts_tpu_torch.cli.generate_codes import main as encode\n"
         f"main(['--text', 'a b', '--out', {str(tmp_path / 'y.wav')!r},"
         f" '--steps', '1', '--device', 'cpu', '--dtype', 'bf16',"
         f" '--config_file', {tiny_config!r}])\n"
         f"t = train(['--smoke', '--device', 'cpu', '--log_dir',"
         f" {str(tmp_path / 'log')!r}])\n"
         "assert t.global_step == 2\n"
+        f"_, n, _ = encode(['--input_file', {str(tmp_path / 'w.tar')!r},"
+        f" '--max_duration', '1', '--device', 'cpu'])\n"
+        "assert n == 1\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 'optax', 'prompt_tts_tpu')]\n"
         "assert not bad, bad\n")
@@ -199,6 +213,8 @@ def test_port_runs_without_jax(tmp_path, tiny_config):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert (tmp_path / "y.wav").exists()
+    with tarfile.open(tmp_path / "w_processed.tar") as tf:
+        assert tf.getnames() == ["u.npy", "u.len.txt"]
 
 
 def test_port_sources_import_no_jax():
@@ -242,7 +258,7 @@ def test_packaging_names_the_port():
     shipped = {p for g in globs for p in port.glob(g)}
     assert set(port.glob("csrc/*.cu")) <= shipped
     assert {p.name for p in shipped} >= {"attention.cu", "attention_bwd.cu",
-                                          "lstm.cu"}
+                                          "lstm.cu", "rvq.cu"}
     # the port's own copy of the CMU dictionary ships with its frontend
     globs = tool["setuptools"]["package-data"]["prompt_tts_tpu_torch.frontend"]
     assert any((port / "frontend").glob(g) for g in globs)
