@@ -1,10 +1,15 @@
 """Text -> 24 kHz wav on PyTorch (the port's synthesis entry point).
 
-Runs the single-speaker model with the DDIM sampler.  The repo holds no
-checkpoint or codec weights, so the model and codec weights are random,
+Runs either model family (a config with ``prompt_conditioning`` builds the
+prompt-conditioned model, which takes ``--prompt_wav``) with the DDIM or
+DPM-Solver++ sampler and optional classifier-free guidance.  The repo holds
+no checkpoint or codec weights, so the model and codec weights are random,
 drawn from seeded generators: the output is noise, for driving the path.
 
   python -m prompt_tts_tpu_torch.cli.synthesize --text "Hello." --out x.wav
+  python -m prompt_tts_tpu_torch.cli.synthesize --text "Hello." --out x.wav \
+      --config_file prompt.json --prompt_wav voice.wav --sampler dpm \
+      --steps 25 --guidance_scale 3
 """
 
 import argparse
@@ -25,7 +30,17 @@ def parse_args(argv=None):
     p.add_argument("--out", type=str, required=True,
                    help="Output wav path (index appended for batches).")
     p.add_argument("--steps", type=int, default=50,
-                   help="DDIM inference steps.")
+                   help="Sampler inference steps.")
+    p.add_argument("--sampler", choices=("ddim", "dpm"), default="ddim",
+                   help="ddim (the reference's 50-step configuration) or dpm "
+                        "(DPM-Solver++(2M): ~20-25 steps suffice).")
+    p.add_argument("--guidance_scale", type=float, default=1.0,
+                   help="Classifier-free guidance scale (>1 needs a model "
+                        "trained with cond_dropout_prob>0; both families).")
+    p.add_argument("--prompt_wav", type=str, default=None,
+                   help="Reference-audio prompt (a wav, resampled to 24 kHz "
+                        "if needed) for a prompt-conditioned model; every "
+                        "--text gets the same prompt.")
     p.add_argument("--seed", type=int, default=0,
                    help="Seed of the initial noise x_T.")
     p.add_argument("--config_file", type=str, default=None)
@@ -49,10 +64,20 @@ def main(argv=None):
                     "codec weights (output is noise)")
     synth = Synthesizer(config=config, device=args.device,
                         dtype=_DTYPES[args.dtype],
-                        num_inference_steps=args.steps)
+                        num_inference_steps=args.steps, sampler=args.sampler,
+                        guidance_scale=args.guidance_scale)
+    prompt_wav = None
+    if args.prompt_wav:
+        import numpy as np
+        from prompt_tts_tpu_torch.utils.wav import read_wav
+        audio, sr = read_wav(args.prompt_wav)
+        if sr != SAMPLE_RATE:
+            from prompt_tts_tpu_torch.utils.resample import resample
+            audio = resample(audio, sr, SAMPLE_RATE)
+        prompt_wav = np.tile(audio[None, :, 0], (len(args.text), 1))
     t0 = time.perf_counter()
     wavs, codes = synth.synthesize(args.text, seed=args.seed,
-                                   return_codes=True)
+                                   return_codes=True, prompt_wav=prompt_wav)
     logging.info("synthesized %d utterance(s) in %.3f s", len(wavs),
                  time.perf_counter() - t0)
 

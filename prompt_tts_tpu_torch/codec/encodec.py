@@ -10,7 +10,7 @@ takes an index.
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,9 +70,15 @@ class _LayerStack(nn.Module):
                 self.add_module(f"layer_{i}", layer)
             self._names.append(None if layer is None else f"layer_{i}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                lstm_schedule: Optional[str] = None) -> torch.Tensor:
         for name in self._names:
-            x = F.elu(x) if name is None else getattr(self, name)(x)
+            if name is None:
+                x = F.elu(x)
+            elif isinstance(getattr(self, name), CodecLSTM):
+                x = getattr(self, name)(x, lstm_schedule)
+            else:
+                x = getattr(self, name)(x)
         return x
 
 
@@ -151,18 +157,20 @@ class EncodecCodec(nn.Module):
             device=device))
         self.encoder = EncodecEncoder(config, device=device)
 
-    def encode(self, wav: torch.Tensor,
-               bandwidth_kbps: float = 6.0) -> torch.Tensor:
+    def encode(self, wav: torch.Tensor, bandwidth_kbps: float = 6.0,
+               lstm_schedule: Optional[str] = None) -> torch.Tensor:
         """wav ``[B, T]`` or ``[B, T, 1]`` -> int32 codes
-        ``[B, n_q, ceil(T/320)]`` (n_q = 8 at 6 kbps)."""
+        ``[B, n_q, ceil(T/320)]`` (n_q = 8 at 6 kbps).  ``lstm_schedule``:
+        see ``codec.layers.CodecLSTM``."""
         if wav.dim() == 2:
             wav = wav[..., None]
-        emb = self.encoder(wav).contiguous()
+        emb = self.encoder(wav, lstm_schedule).contiguous()
         n_q = self.config.num_quantizers_for_bandwidth(bandwidth_kbps)
         return rvq_encode(emb, self.codebooks[:n_q])
 
-    def decode(self, codes: torch.Tensor) -> torch.Tensor:
+    def decode(self, codes: torch.Tensor,
+               lstm_schedule: Optional[str] = None) -> torch.Tensor:
         """codes ``[B, n_q, F]`` -> wav ``[B, F*320]``."""
         n_q = codes.shape[1]
         emb = rvq_decode(codes, self.codebooks[:n_q])
-        return self.decoder(emb)[..., 0]
+        return self.decoder(emb, lstm_schedule)[..., 0]

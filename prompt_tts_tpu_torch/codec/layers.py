@@ -8,13 +8,23 @@ of the torch ``EncodecConv1d``.
 """
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from prompt_tts_tpu_torch.ops.cuda.lstm import lstm_recurrence
+from prompt_tts_tpu_torch.ops.cuda.lstm import (
+    lstm_recurrence, lstm_recurrence_t,
+)
+
+# The LSTM recurrence's two schedules: "step" (csrc/lstm.cu, one launch per
+# timestep) and "persistent" (csrc/lstm_t.cu, one cooperative launch).  The
+# default is the one the H100 measured faster at every batch of the codec's
+# paths (B = 4 decode and prompt encode, B = 32 generate_codes; PERF.md
+# section 6).
+LSTM_SCHEDULES = ("step", "persistent")
+DEFAULT_LSTM_SCHEDULE = "persistent"
 
 
 def causal_pad_amounts(length: int, kernel_size: int, stride: int,
@@ -79,8 +89,10 @@ class CodecLSTM(nn.Module):
     """2-layer LSTM + residual, torch gate semantics.
 
     The input projection ``x @ W_ih^T + b`` for all timesteps is one matmul
-    outside the recurrence; the recurrence itself is the LSTM kernel
-    (``ops/cuda/lstm.py``) on CUDA and its plain version on the CPU.
+    outside the recurrence; the recurrence itself is an LSTM kernel
+    (``ops/cuda/lstm.py``) on CUDA and its plain version on the CPU, in the
+    ``schedule`` given to ``forward`` ("step" or "persistent"; None: the
+    measured default, ``DEFAULT_LSTM_SCHEDULE``).
     Params keep the JAX names: ``l{n}_w_ih`` [4H, C], ``l{n}_w_hh`` [4H, H],
     ``l{n}_b`` [4H] (b_ih + b_hh).
     """
@@ -98,15 +110,23 @@ class CodecLSTM(nn.Module):
                 self.register_parameter(name, nn.Parameter(
                     torch.zeros(shape, device=device)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, C]
+    def forward(self, x: torch.Tensor,
+                schedule: Optional[str] = None) -> torch.Tensor:  # [B, T, C]
+        schedule = schedule or DEFAULT_LSTM_SCHEDULE
+        if schedule not in LSTM_SCHEDULES:
+            raise ValueError(f"unknown LSTM schedule {schedule!r}, expected "
+                             f"one of {LSTM_SCHEDULES}")
         residual = x
         for layer in range(self.num_layers):
             w_ih = getattr(self, f"l{layer}_w_ih")
-            w_hh = getattr(self, f"l{layer}_w_hh")
+            w_hh = getattr(self, f"l{layer}_w_hh")      # [4H, H]
             b = getattr(self, f"l{layer}_b")
             x_proj = torch.einsum("btc,gc->btg", x, w_ih) + b    # [B, T, 4H]
-            hs = lstm_recurrence(x_proj.transpose(0, 1).contiguous(),
-                                 w_hh.t().contiguous())         # [T, B, H]
+            x_proj = x_proj.transpose(0, 1).contiguous()        # [T, B, 4H]
+            if schedule == "step":
+                hs = lstm_recurrence(x_proj, w_hh.t().contiguous())
+            else:
+                hs = lstm_recurrence_t(x_proj, w_hh)
             x = hs.transpose(0, 1)
         return x + residual
 

@@ -12,7 +12,8 @@ changes:
                                     convert.py:_convt_params)
   LayerNorm/GroupNorm scale      -> weight
   Embed embedding                -> weight
-  LSTM l{n}_w_ih / l{n}_w_hh / l{n}_b and the codebooks: as they are
+  LSTM l{n}_w_ih / l{n}_w_hh / l{n}_b, the codebooks and the prompt
+  encoder's learned queries [K, dim]: as they are
 
 Input trees are nested dicts of numpy arrays, as
 ``jax.tree.map(np.asarray, params)`` gives them, with or without the
@@ -30,7 +31,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-_AS_IS = re.compile(r"l\d+_(w_ih|w_hh|b)|codebooks")
+_AS_IS = re.compile(r"l\d+_(w_ih|w_hh|b)|codebooks|queries")
 
 
 def _leaves(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -66,7 +67,8 @@ def _convert(tree: dict) -> Dict[str, torch.Tensor]:
 
 
 def model_state_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
-    """``TTSSingleSpeaker`` params (JAX) -> ``TTSSingleSpeaker`` state_dict."""
+    """``TTSSingleSpeaker`` or ``TTSPromptSpeaker`` params (JAX) -> the
+    port's state_dict of the same class."""
     return _convert(tree)
 
 

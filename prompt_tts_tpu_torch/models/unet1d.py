@@ -10,7 +10,9 @@ Parity quirks kept from the JAX package (and its reference):
 * in UNet blocks ``unet_num_heads`` is the NUMBER of heads, head_dim =
   channels / heads.
 
-The optional variants (fourier time embedding, class embeddings,
+``class_emb`` (an already-embedded ``[B, 4 * chans[0]]`` vector, the prompt
+family's speaker embedding) is added to the time embedding.  The optional
+variants (fourier time embedding, the configured class embeddings,
 conv-transpose upsample, avg-pool downsample) are not ported and raise.
 """
 
@@ -27,6 +29,7 @@ from prompt_tts_tpu_torch.models.embeddings import (
 from prompt_tts_tpu_torch.models.layers import (
     Conv1d, Dense, GroupNorm, TransformerBlock,
 )
+from prompt_tts_tpu_torch.ops.resnet import resnet_block
 
 # {block: {attn: [(k, v) per transformer layer]}}, k/v [B, S, H, D]
 CrossKV = Dict[str, Dict[str, List[Tuple[torch.Tensor, torch.Tensor]]]]
@@ -46,7 +49,8 @@ def _nearest_resize(x: torch.Tensor, target_len: int) -> torch.Tensor:
 
 class ResnetBlock1D(nn.Module):
     """GN -> SiLU -> conv3 -> +temb -> GN -> SiLU -> dropout -> conv3 ->
-    +shortcut."""
+    +shortcut, through ``ops/resnet.py:resnet_block`` (the fused kernel on
+    the card when no gradient is needed, the module arithmetic otherwise)."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
                  groups: int = 32, eps: float = 1e-5, dropout: float = 0.0,
@@ -63,14 +67,10 @@ class ResnetBlock1D(nn.Module):
                                         padding=0, device=device)
         else:
             self.conv_shortcut = None
+        self.kernel_weights = None     # ops/resnet.py:pack_kernel_weights_
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = h + self.time_emb_proj(F.silu(temb))[:, None, :]
-        h = self.conv2(self.dropout(F.silu(self.norm2(h))))
-        if self.conv_shortcut is not None:
-            x = self.conv_shortcut(x)
-        return x + h
+        return resnet_block(self, x, temb)
 
 
 class Downsample1D(nn.Module):
@@ -262,7 +262,8 @@ class UNet1DCondition(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 context: Optional[torch.Tensor],
-                cross_kv: Optional[CrossKV] = None) -> torch.Tensor:
+                cross_kv: Optional[CrossKV] = None,
+                class_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.config
         ckv = cross_kv if cross_kv is not None else {}
         n = len(cfg.block_out_channels)
@@ -271,6 +272,8 @@ class UNet1DCondition(nn.Module):
             flip_sin_to_cos=cfg.flip_sin_to_cos,
             downscale_freq_shift=cfg.freq_shift)
         temb = self.time_embedding(t_feat)
+        if class_emb is not None:
+            temb = temb + class_emb.to(temb.dtype)
 
         x = self.conv_in(sample)
         skips = [x]

@@ -15,11 +15,13 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from prompt_tts_tpu_torch.config import Config, ModelConfig, TrainConfig
 from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
 from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
-from prompt_tts_tpu_torch.models.unet1d import cross_attn_sites
+from prompt_tts_tpu_torch.models.layers import cast_compute_
+from prompt_tts_tpu_torch.models.unet1d import ResnetBlock1D, cross_attn_sites
 from prompt_tts_tpu_torch.ops.attention import (
     attention_bwd_plain, attention_plain,
 )
@@ -28,7 +30,12 @@ from prompt_tts_tpu_torch.ops.cuda.attention_bwd import (
     LAUNCHES_PER_CALL, attention_bwd,
 )
 from prompt_tts_tpu_torch.ops.cuda.lstm import (
-    lstm_recurrence, lstm_recurrence_plain,
+    lstm_recurrence, lstm_recurrence_plain, lstm_recurrence_t,
+    lstm_recurrence_t_plain,
+)
+from prompt_tts_tpu_torch.ops.cuda.resnet import fused_resnet_block
+from prompt_tts_tpu_torch.ops.resnet import (
+    resnet_block, resnet_block_plain,
 )
 from prompt_tts_tpu_torch.ops.cuda.rvq import (
     index_contract, rvq_encode, rvq_encode_plain,
@@ -50,6 +57,16 @@ ATTN_RTOL_BF16 = 4e-3
 # LSTM: f32 both sides, gate sums in another order, a contractive
 # recurrence.
 LSTM_TOL = 1e-5
+# Fused resnet block, kernel vs the plain module arithmetic on the same
+# inputs, max |err| <= tol * max(1, max |ref|).  f32: the same math, f32
+# sums in another order, and GroupNorm statistics as shifted sums
+# (E[(x-K)^2] - E[x-K]^2, tiles combined in f64) where the plain version
+# takes torch's two passes: ~1e-6 relative.  bf16: the plain version rounds
+# conv1's output and then h + temb to bf16 (two roundings), the kernel
+# rounds h once, as the TPU kernel does; a bf16 ulp is 2^-8 relative, and
+# the difference in h passes through GN2 and conv2 and the output's own
+# rounding.
+RESNET_TOL_F32, RESNET_TOL_BF16 = 1e-4, 3e-2
 # Synthesis on the card against the CPU, f32 (TF32 off): latents the
 # model-level 5e-4 contract, the wav decoded from the same codes the
 # codec's 1e-5 decode contract.
@@ -187,6 +204,128 @@ def test_lstm_kernel_matches_plain(dev, B, H):
     torch.testing.assert_close(out, ref, atol=LSTM_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("B", [1, 4, 32])
+def test_lstm_t_kernel_matches_plain(dev, B):
+    """The persistent schedule, T = 77 (a multiple of nothing), H = 512."""
+    g = torch.Generator(dev).manual_seed(2)
+    T, H = 77, 512
+    x = torch.randn(T, B, 4 * H, generator=g, device=dev) * 0.5
+    w = torch.randn(4 * H, H, generator=g, device=dev) * H ** -0.5
+    before = lstm_recurrence_t.launches
+    with full_f32():
+        out = lstm_recurrence_t(x, w)
+        ref = lstm_recurrence_t_plain(x, w)
+    torch.cuda.synchronize()
+    assert lstm_recurrence_t.launches == before + 1
+    torch.testing.assert_close(out, ref, atol=LSTM_TOL, rtol=0)
+
+
+def test_lstm_t_refuses_a_grid_that_cannot_be_resident(dev):
+    """H = 2048: 4H x H f32 is 64 MB of W_hh, more than every SM's shared
+    memory together, so the 512 CTAs of 4 units (128 KB each, one an SM)
+    cannot all be resident.  The wrapper raises rather than launching a
+    grid barrier that deadlocks."""
+    x = torch.zeros(2, 1, 4 * 2048, device=dev)
+    w = torch.zeros(4 * 2048, 2048, device=dev)
+    before = lstm_recurrence_t.launches
+    with pytest.raises(RuntimeError, match="co-resident"):
+        lstm_recurrence_t(x, w)
+    assert lstm_recurrence_t.launches == before
+
+
+def _resnet_case(dev, B, T, cin, cout, dtype, seed=0):
+    """A ResnetBlock1D on the card with non-trivial norms and biases, and
+    inputs with a per-channel offset (as the UNet's skip concatenations
+    have)."""
+    g = torch.Generator().manual_seed(seed)
+    block = ResnetBlock1D(cin, cout, 1024)
+    random_init_(block, g)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if "norm" in name or name.endswith("bias"):
+                p.add_(0.1 * torch.randn(p.shape, generator=g))
+    block = cast_compute_(block.to(dev).eval(), dtype)
+    x = (torch.randn(B, T, cin, generator=g) * 1.5
+         + torch.randn(cin, generator=g)).to(dev, dtype)
+    temb = torch.randn(B, 1024, generator=g).to(dev)
+    return block, x, temb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,cin,cout", [(900, 256, 256), (225, 1536, 768),
+                                        (113, 768, 768), (450, 768, 512),
+                                        (37, 128, 96)])
+def test_resnet_kernel_matches_plain(dev, T, cin, cout, dtype):
+    """The UNet's lengths (113 and 225 are tile multiples of nothing), the
+    up blocks' skip concatenations (Cin = 1536, Cin != Cout: the 1x1
+    shortcut) and a width that is not a tile multiple, at B = 1."""
+    block, x, temb = _resnet_case(dev, 1, T, cin, cout, dtype)
+    before = fused_resnet_block.launches
+    with torch.no_grad(), full_f32():
+        out = resnet_block(block, x, temb)
+        ref = resnet_block_plain(block, x,
+                                 block.time_emb_proj(F.silu(temb)))
+    torch.cuda.synchronize()
+    assert fused_resnet_block.launches == before + 1
+    assert out.dtype == dtype and out.shape == (1, T, cout)
+    assert torch.isfinite(out).all()
+    tol = RESNET_TOL_F32 if dtype == torch.float32 else RESNET_TOL_BF16
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * max(1.0, ref.float().abs().max().item()), err
+
+
+def test_resnet_kernel_is_deterministic(dev):
+    """No atomics: GN2's partial sums are reduced in a fixed order."""
+    block, x, temb = _resnet_case(dev, 8, 900, 512, 256, torch.bfloat16)
+    with torch.no_grad():
+        a = resnet_block(block, x, temb)
+        b = resnet_block(block, x, temb)
+    assert torch.equal(a, b)
+
+
+def test_resnet_dispatch_keeps_autograd_and_checks(dev):
+    """With a gradient the module arithmetic runs (the kernel has no
+    backward); the wrapper refuses what the kernel does not take."""
+    block, x, temb = _resnet_case(dev, 2, 40, 64, 64, torch.float32)
+    before = fused_resnet_block.launches
+    out = resnet_block(block, x, temb)
+    out.sum().backward()
+    assert fused_resnet_block.launches == before
+    assert block.conv1.conv.weight.grad is not None
+    with torch.no_grad():
+        packed = block.kernel_weights     # packed once, by cast_compute_
+        assert packed["w1"].dtype == torch.float32
+        tp = torch.zeros(2, 64, device=dev)
+        for match, args in {
+                "on cpu": (x.cpu(), tp, packed),
+                "not supported": (x.half(), tp, packed),
+                "temb_proj": (x, tp[:1], packed),
+                "do not fit": (x[..., :32].contiguous(), tp, packed)}.items():
+            with pytest.raises(ValueError, match=match):
+                fused_resnet_block(*args, groups=32, eps=1e-5)
+    assert fused_resnet_block.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_all_masked_keys(dev, dtype):
+    """Classifier-free guidance's null text masks every key of the text
+    encoder's self-attention (a bias of -1e4 on all 550).  The bias shifts
+    every score alike, so the kernel (f32 scores) gives the softmax of the
+    unmasked scores, held against the f32 plain version of the same inputs
+    to BWD_TOL_ALL_MASKED: the scores sit at -1e4, where an f32 ulp is
+    ~1e-3.  (The bf16 plain version adds the bias in bf16, whose ulp at 1e4
+    is 64, so every score rounds to -1e4 and its rows are uniform.)"""
+    q, k, v, _ = _qkv(dev, 2, 550, 550, 12, 64, dtype, False)
+    bias = torch.full((2, 1, 1, 550), -1e4, device=dev)
+    out = flash_attention(q, k, v, bias)
+    ref = attention_plain(q.float(), k.float(), v.float(), bias)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    rtol = ATTN_RTOL_BF16 if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(out.float(), ref, atol=BWD_TOL_ALL_MASKED,
+                               rtol=rtol)
+
+
 def test_lstm_wrapper_checks(dev):
     x = torch.zeros(5, 2, 96, device=dev)
     with pytest.raises(ValueError, match="multiple of 16"):
@@ -224,17 +363,22 @@ def test_synthesis_on_card_matches_cpu(synth_pair):
 
 def test_synthesize_bf16_launches_every_site(dev):
     """bf16 denoiser: one attention launch per text-encoder layer, two per
-    UNet transformer and step (the cross k/v hoist runs no attention), and
-    one LSTM launch per codec LSTM layer."""
+    UNet transformer and step (the cross k/v hoist runs no attention), one
+    fused resnet call per UNet resnet block and step, and one LSTM launch
+    per codec LSTM layer (in the default schedule)."""
     steps = 3
     synth = Synthesizer(config=Config(model=CARD_CFG), device=dev,
                         dtype=torch.bfloat16, num_inference_steps=steps)
     flash_attention.launches = lstm_recurrence.launches = 0
+    lstm_recurrence_t.launches = fused_resnet_block.launches = 0
     wav, codes = synth.synthesize(TEXTS, seed=0, return_codes=True)
     n_sites = len(list(cross_attn_sites(CARD_CFG)))
+    n_resnets = sum(isinstance(m, ResnetBlock1D)
+                    for m in synth.model.modules())
     assert flash_attention.launches == (CARD_CFG.text_encoder_layers
                                         + 2 * n_sites * steps)
-    assert lstm_recurrence.launches == 2
+    assert fused_resnet_block.launches == n_resnets * steps
+    assert lstm_recurrence.launches + lstm_recurrence_t.launches == 2
     assert wav.shape == (len(TEXTS), CARD_CFG.sample_size * 320)
     assert np.isfinite(wav).all()
     assert codes.min() >= 0 and codes.max() <= 1023
@@ -453,9 +597,11 @@ def test_encode_on_card_matches_cpu(dev):
         with torch.no_grad(), full_f32():
             lat[d] = r.codec.encoder(wav.to(d)[..., None]).cpu()
         rvq_encode.launches = lstm_recurrence.launches = 0
+        lstm_recurrence_t.launches = 0
         codes[d] = r.encode(wav).cpu()
         if d == "cuda":
-            assert rvq_encode.launches == 1 and lstm_recurrence.launches == 2
+            assert rvq_encode.launches == 1 and (
+                lstm_recurrence.launches + lstm_recurrence_t.launches == 2)
     assert codes["cuda"].shape == (2, 8, 113)
     scale = max(1.0, lat["cpu"].abs().max().item())
     torch.testing.assert_close(lat["cuda"], lat["cpu"], atol=ENC_TOL * scale,

@@ -33,6 +33,17 @@ from prompt_tts_tpu_torch.convert import codec_state_from_jax
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's torch CPU ops on one thread: the shapes are tiny,
+    and OpenMP's spinning worker threads stall when the suite's parallel
+    workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fill(shapes, rng):
     def leaf(path, s):
         x = rng.standard_normal(s.shape).astype(np.float32)

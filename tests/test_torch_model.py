@@ -27,6 +27,17 @@ CFG = ModelConfig(
     sample_size=48, layers_per_block=1, unet_num_heads=4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's torch CPU ops on one thread: the shapes are tiny,
+    and OpenMP's spinning worker threads stall when the suite's parallel
+    workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def random_params(shapes, rng):
     """Params of the given shape tree drawn from ``rng``: lecun-scaled
     kernels, non-trivial biases and norm scales (flax's init would make

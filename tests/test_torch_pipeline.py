@@ -9,6 +9,7 @@ param trees filled from a numpy seed, converted with ``convert.py``).
 """
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -49,6 +50,17 @@ CFG = ModelConfig(
     sample_size=48, layers_per_block=1, unet_num_heads=4)
 TEXTS = ["hello world", "printing, in the only sense"]
 STEPS = 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's torch CPU ops on one thread: the shapes are tiny,
+    and OpenMP's spinning worker threads stall when the suite's parallel
+    workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _fill(shapes, rng):
@@ -210,7 +222,8 @@ def test_port_runs_without_jax(tmp_path, tiny_config):
         "assert not bad, bad\n")
     root = str(pathlib.Path(__file__).resolve().parents[1])
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert (tmp_path / "y.wav").exists()
     with tarfile.open(tmp_path / "w_processed.tar") as tf:

@@ -77,6 +77,17 @@ TRAIN = dict(learning_rate=1e-3, lr_warmup_steps=0, lr_scheduler="constant",
 B = 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's torch CPU ops on one thread: the shapes are tiny,
+    and OpenMP's spinning worker threads stall when the suite's parallel
+    workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fill(shapes, rng):
     def leaf(path, s):
         name = path[-1].key
