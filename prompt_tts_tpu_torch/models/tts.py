@@ -21,8 +21,10 @@ class TTSSingleSpeaker(nn.Module):
     def __init__(self, config: ModelConfig, device=None):
         super().__init__()
         if config.prompt_conditioning:
-            raise NotImplementedError(
-                "the prompt-conditioned model family is not ported")
+            raise ValueError(
+                "TTSSingleSpeaker is the single-speaker family: use "
+                "models.prompt_tts.TTSPromptSpeaker for a config with "
+                "prompt_conditioning")
         self.config = config
         self.text_encoder = TextEncoder(
             vocab_len=config.cmu_vocab_len, seq_len=config.cmu_seq_len,

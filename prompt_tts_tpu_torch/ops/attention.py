@@ -12,8 +12,10 @@ gradient is needed it goes through :class:`AttentionFunction` instead,
 whose backward is the hand-written backward kernel
 (``ops/cuda/attention_bwd.py``, the port of the TPU
 ``attention_fused_bwd``), or :func:`attention_bwd_plain` on the CPU.  No
-flag arms it: needing a gradient is the rule.  Ring attention and
-sequence parallelism are not ported.
+flag arms it: needing a gradient is the rule.
+:func:`flash_attention_plain` is the TPU kernel's own math, which the bf16
+kernel computes; the card's checks hold that kernel to it.  Ring attention
+and sequence parallelism are not ported.
 """
 
 from typing import Optional
@@ -44,6 +46,27 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Port of the TPU kernel's math (``_attn_kernel``, prompt_tts_tpu/ops/
+    pallas/attention.py:40-67): what the bf16 CUDA kernel computes.
+
+    f32 scores plus the f32 bias, f32 max, exp and sum; the unnormalised
+    probabilities rounded to the input dtype for PV with f32 accumulation,
+    divided by the f32 sum; the output at q's dtype.  For f32 inputs this
+    is f32 attention.
+    """
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    denom = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
+    return (out / denom).permute(0, 2, 1, 3).to(q.dtype)
 
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

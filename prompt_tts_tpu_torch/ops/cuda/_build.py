@@ -3,11 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so`` at the
 root of the checkout, then loaded with ``ctypes``.  The hash covers the
-source and the compiler flags, so an edited source is rebuilt and a stale
-library is never loaded.  Each source has its own lock, so several
-sources build at once from several threads (:func:`load_all`).  Nothing
-here runs at import time: the CPU tests import every module on a machine
-without ``nvcc``.
+source, the headers of ``csrc/`` and the compiler flags, so an edited
+source or header is rebuilt and a stale library is never loaded.  Each
+source has its own lock, so several sources build at once from several
+threads (:func:`load_all`).  Nothing here runs at import time: the CPU
+tests import every module on a machine without ``nvcc``.
 """
 
 import ctypes
@@ -53,7 +53,9 @@ def load(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()
+        # the headers of csrc/ are part of every source they may reach
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(src.read_bytes() + headers
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
         so = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
         build_seconds[name] = 0.0

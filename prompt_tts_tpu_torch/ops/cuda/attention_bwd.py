@@ -8,8 +8,11 @@ None and the forward kernel's f32 row log-sum-exp ``[B,H,Tq]``, it returns
 dq, dk, dv at the input dtype and, when asked, the real bias gradient
 ``[B,1,1,Tk]`` (ds summed over heads and query rows) at the bias's dtype.
 
-A CUDA tensor launches the kernel (two launches: the dq pass, then the
-dk/dv pass) or raises; a CPU tensor runs the plain version
+The dtype picks the kernel: bf16 runs on the tensor cores (``wgmma``; p
+and ds*scale rounded to bf16 before their products, as the TPU kernel and
+the plain version on bf16 tensors do), f32 on the CUDA cores.  A CUDA
+tensor launches the kernel (two launches: the dq pass, then the dk/dv
+pass) or raises; a CPU tensor runs the plain version
 (:func:`prompt_tts_tpu_torch.ops.attention.attention_bwd_plain`), which
 recomputes the softmax and needs no lse.  ``attention_bwd.launches``
 counts kernel launches, two per call.
@@ -22,6 +25,7 @@ import torch
 
 from prompt_tts_tpu_torch.ops.attention import attention_bwd_plain
 from prompt_tts_tpu_torch.ops.cuda import _build
+from prompt_tts_tpu_torch.ops.cuda.attention import check_copy_alignment
 
 HEAD_DIMS = (32, 64, 96, 128)
 LAUNCHES_PER_CALL = 2
@@ -77,6 +81,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("attention_bwd: q, k, v, o and lse must be "
                          "contiguous")
     do = do.contiguous()
+    if q.dtype == torch.bfloat16:
+        check_copy_alignment("attention_bwd", q=q, k=k, v=v, o=o, do=do)
     key_bias = None
     if bias is not None:
         if bias.device != q.device:

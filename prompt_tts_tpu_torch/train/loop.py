@@ -51,6 +51,10 @@ class Trainer:
                  log_every: int = 0):
         if log_every < 0:
             raise ValueError(f"log_every must be >= 0, got {log_every}")
+        if config.model.prompt_conditioning:
+            raise NotImplementedError(
+                "Trainer: training the prompt-conditioned family is not "
+                "ported yet")
         self.device = torch.device(device)
         self.config = config
         self.dataset = dataset

@@ -18,7 +18,7 @@ from jax.experimental.pallas import tpu as pltpu
 from prompt_tts_tpu.ops.attention import _xla_attention
 from prompt_tts_tpu.ops.pallas.attention import flash_attention as jax_flash
 from prompt_tts_tpu_torch.ops.attention import (
-    attention_plain, scaled_dot_product_attention,
+    attention_plain, flash_attention_plain, scaled_dot_product_attention,
 )
 from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
 
@@ -30,6 +30,12 @@ F32_TOL = 1e-5
 # slightly different places gives up to a few bf16 ulps on O(1) outputs
 # (bf16 eps is 2^-8 = 3.9e-3).
 BF16_TOL = 2e-2
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each |x| (8 significant bits), for normal x."""
+    mag = np.maximum(np.abs(x), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(mag)) - 7).astype(np.float32)
 
 
 def _inputs(seed, B, Tq, Tk, H, D, masked=True):
@@ -63,6 +69,26 @@ def test_plain_matches_pallas_flash_interpret(D):
     out = attention_plain(_t(q), _t(k), _t(v), _t(bias))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=F32_TOL,
                                rtol=0)
+
+
+@pytest.mark.parametrize("D", [32, 96])
+def test_flash_plain_matches_pallas_flash_interpret_bf16(D):
+    """``flash_attention_plain`` (what the bf16 CUDA kernel computes) against
+    the TPU kernel in interpret mode at bf16: ragged Tq/Tk, masked keys.
+    Both take f32 scores and statistics and round the unnormalised p to
+    bf16 for PV; the f32 sums run in another order, so the two outputs may
+    round to neighbouring bf16 values: at most one bf16 ulp of |out|."""
+    q, k, v, bias = _inputs(5, 2, 70, 45, 2, D)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a.float().numpy(), jnp.bfloat16)
+                  for a in (q, k, v))
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jax_flash(jq, jk, jv, bias=_j(bias))
+                         .astype(jnp.float32))
+    out = flash_attention_plain(q, k, v, _t(bias))
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    err = np.abs(out.float().numpy() - ref)
+    assert (err <= _bf16_ulp(ref)).all(), err.max()
 
 
 @pytest.mark.parametrize("masked", [False, True])
