@@ -19,7 +19,10 @@ Phases, each printed as one JSON object per line:
      keys, the prompt encoder's calls); both LSTM schedules at the
      decoder's B=4, the encoder's B=32 and the prompt encode's T=225; the
      fused resnet block at every block shape of one UNet forward (bf16 at
-     B=8, f32 at B=1); the RVQ encode inside the encode slice (its inputs
+     B=8, held to the module arithmetic and to fused_resnet_block_plain,
+     run twice for the same bits, timed per launch by the profiler, and
+     the wrapper's host cost per call; f32 at B=1); the RVQ encode inside
+     the encode slice (its inputs
      are that slice's latents); the attention backward last: checked at
      B=4, then timed, with the forward, at the batch the train slice used,
      where two runs must give the same bits.
@@ -61,6 +64,15 @@ Phases, each printed as one JSON object per line:
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises (non-zero exit); without CUDA it exits non-zero
 before any result.
+
+    python3 chip_smoke.py --resnet-times --resnet-tiles --synth-times
+
+runs timings alone, any of them, after the build: the resnet kernel at
+every block shape (per launch, the library sequence, the wrapper's host
+cost), its tile shapes at B=8 and B=1, and the two synthesis slices' warm
+walls with a profile.  ``--resnet-times`` and ``--synth-times`` use only
+what earlier versions of the package have too, so that two checkouts can be
+timed in one call.
 """
 
 import dataclasses
@@ -139,6 +151,12 @@ LSTM_TOL = 1e-5
 # relative and the difference passes through GN2, conv2 and the output's
 # own rounding.
 RESNET_TOL_F32, RESNET_TOL_BF16 = 1e-4, 3e-2
+# The bf16 kernel vs fused_resnet_block_plain, which rounds a, h, a2 and the
+# output where the kernel does: GroupNorm statistics in the last f32 bits
+# and f32 sums in another order can move a value across a bf16 rounding
+# boundary, |err| <= FUSED_ATOL_BF16 + FUSED_RTOL_BF16 |ref|: one ulp of the
+# output, plus 2^-8 for such a flip in a, h or a2 carried through a product.
+FUSED_RTOL_BF16, FUSED_ATOL_BF16 = 2.0 ** -7, 2.0 ** -8
 # The codec decode in the two LSTM schedules on the same codes: f32, the
 # 900-step recurrences differ by LSTM_TOL, then 15 conv layers.
 SCHEDULE_WAV_TOL = 1e-4
@@ -805,14 +823,225 @@ def resnet_sequence(block, xc, tp):
                                                sc.conv.bias))
 
 
+def _resnet_launch(name):
+    """Which launch of the resnet block a kernel's name is: GroupNorm
+    statistics, activation pass, conv1 or conv2 (the convolutions' last
+    template argument says which), else None."""
+    for launch, pat in (("stats", r"stats"), ("activation", r"_act"),
+                        ("conv2", r"true>"), ("conv1", r"false>")):
+        if re.search(pat, name):
+            return launch
+    return None
+
+
+# launches of each kind a call makes (the activation pass runs twice)
+RESNET_LAUNCHES_PER_CALL = {"stats": 1, "activation": 2, "conv1": 1,
+                            "conv2": 1}
+
+
+def resnet_launch_ms(fn, n=10):
+    """Device ms of each of the resnet kernel's launches, per call of
+    ``fn`` (torch.profiler over ``n`` calls, after one warm call): the mean
+    of the launches the profiler recorded, times the launches of that kind
+    a call makes (it now and then drops some, or all: then it profiles
+    again)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        seen = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or 0
+            launch = _resnet_launch(e.key)
+            if us > 0 and launch is not None:
+                tot, cnt = seen.get(launch, (0.0, 0))
+                seen[launch] = (tot + us, cnt + e.count)
+        if seen:
+            break
+    return {k: tot / cnt / 1e3 * RESNET_LAUNCHES_PER_CALL[k]
+            for k, (tot, cnt) in seen.items()}
+
+
+def resnet_host_us(smi, n=300):
+    """Host microseconds per call of the kernel's wrapper and of the
+    dispatcher, at the deepest block at batch 1 (bf16, T=113, 768 -> 768),
+    where the card is quickest and the host sets the pace: the wall of
+    ``n`` back-to-back calls, enqueue only (the card syncs after)."""
+    import torch
+    import torch.nn.functional as F
+    from prompt_tts_tpu_torch.ops.cuda.resnet import fused_resnet_block
+    from prompt_tts_tpu_torch.ops.resnet import resnet_block
+    g = torch.Generator().manual_seed(13)
+    block = _resnet_block(768, 768, torch.bfloat16, g)
+    x = torch.randn(1, 113, 768, generator=g).to("cuda", torch.bfloat16)
+    temb = torch.randn(1, 1024, generator=g).to("cuda")
+    norm = block.norm1.norm
+    out = {}
+    with torch.no_grad():
+        tp = block.time_emb_proj(F.silu(temb))
+        for name, fn in (
+                ("wrapper", lambda: fused_resnet_block(
+                    x, tp, block.kernel_weights, norm.num_groups, norm.eps)),
+                ("dispatcher", lambda: resnet_block(block, x, temb))):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            out[name] = (time.perf_counter() - t0) / n * 1e6
+            torch.cuda.synchronize()
+    rec = {"phase": "resnet_host", "what": "host us per call, bf16 B=1 "
+           "T=113 768->768", "host_us": out, "card": smi}
+    emit(rec)
+    return out
+
+
+def _resnet_inputs(T, cin, cout, B, g):
+    """A bf16 block on the card, x ``[B, T, cin]``, temb and its
+    projection."""
+    import torch
+    import torch.nn.functional as F
+    block = _resnet_block(cin, cout, torch.bfloat16, g)
+    x = (torch.randn(B, T, cin, generator=g) * 1.5
+         + torch.randn(cin, generator=g)).to("cuda", torch.bfloat16)
+    temb = torch.randn(B, 1024, generator=g).to("cuda")
+    with torch.no_grad():
+        tp = block.time_emb_proj(F.silu(temb))
+    return block, x, temb, tp
+
+
+def _distinct_shapes():
+    """``(T, Cin, Cout, blocks of that shape)`` of one flagship UNet
+    forward, in forward order."""
+    from prompt_tts_tpu_torch.config import ModelConfig
+    shapes = [s[1:] for s in resnet_shapes(ModelConfig())]
+    return [(*s, shapes.count(s)) for i, s in enumerate(shapes)
+            if s not in shapes[:i]]
+
+
+def resnet_times(smi):
+    """``--resnet-times``: the bf16 block at B=8 at every distinct block
+    shape, no checks: the wrapper's ms per call (CUDA events) and per
+    launch (profiler), and the library sequence; then the host's cost per
+    call.  Uses only the wrapper's first five arguments, so that two
+    versions of the package can be timed in one call."""
+    import torch
+    from prompt_tts_tpu_torch.ops.cuda.resnet import fused_resnet_block
+    g = torch.Generator().manual_seed(12)
+    total = {"ms": 0.0, "library_ms": 0.0, "launch_ms": {}}
+    B = 2 * N_REQUESTS
+    shapes = _distinct_shapes()
+    for T, cin, cout, n_blocks in shapes:
+        block, x, _, tp = _resnet_inputs(T, cin, cout, B, g)
+        norm = block.norm1.norm
+
+        def kernel():
+            return fused_resnet_block(x, tp, block.kernel_weights,
+                                      norm.num_groups, norm.eps)
+        with torch.no_grad():
+            xc = x.transpose(1, 2).contiguous()
+            rec = {"ms": cuda_ms(kernel, 20),
+                   "launch_ms": resnet_launch_ms(kernel),
+                   "library_ms": cuda_ms(
+                       lambda: resnet_sequence(block, xc, tp), 10)}
+        total["ms"] += n_blocks * rec["ms"]
+        total["library_ms"] += n_blocks * rec["library_ms"]
+        for k, v in rec["launch_ms"].items():
+            total["launch_ms"][k] = total["launch_ms"].get(k, 0.0) + \
+                n_blocks * v
+        emit({"phase": "resnet_time", "case": f"T={T} Cin={cin} Cout={cout}",
+              "B": B, "blocks": n_blocks, **rec, "card": smi})
+    host = resnet_host_us(smi)
+    emit({"phase": "resnet_times", "unit": f"one UNet forward's "
+          f"{sum(s[3] for s in shapes)} blocks, bf16, B={B}", **total,
+          "host_us": host, "card": smi})
+
+
+def resnet_tile_sweep(smi):
+    """``--resnet-tiles``: the tile rule's choices: each launch's device ms
+    (profiler) at every tile shape the wrapper has, at every distinct block
+    shape, at B = 8 and 1, beside the tile the rule picks."""
+    import torch
+    from prompt_tts_tpu_torch.ops.cuda.resnet import (
+        TILES, _launch, resnet_tiles,
+    )
+    g = torch.Generator().manual_seed(12)
+    for T, cin, cout, _ in _distinct_shapes():
+        for B in (2 * N_REQUESTS, 1):
+            block, x, _, tp = _resnet_inputs(T, cin, cout, B, g)
+            norm = block.norm1.norm
+            by_tiles = {}
+            with torch.no_grad():
+                for tiles in TILES:
+                    by_tiles["{}x{}".format(*tiles)] = resnet_launch_ms(
+                        lambda: _launch(
+                            x, tp, block.kernel_weights, norm.num_groups,
+                            norm.eps, tiles))
+            emit({"phase": "resnet_tiles", "case": f"T={T} Cin={cin} "
+                  f"Cout={cout}", "B": B, "launch_ms_by_tiles": by_tiles,
+                  "rule": "{}x{}".format(*resnet_tiles(B, T, cin, cout)),
+                  "card": smi})
+
+
+def synth_times(smi):
+    """``--synth-times``: warm walls (median of 5) and one profile of the
+    two synthesis slices through ``Synthesizer`` alone (DDIM-50 single
+    speaker; the prompt family, DPM-25 CFG 3 with a 3 s prompt), 4
+    requests, bf16, so that two versions of the package can be timed in
+    one call."""
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.config import Config
+    from prompt_tts_tpu_torch.pipeline import Synthesizer
+    from prompt_tts_tpu_torch.utils.resample import resample
+    prompt = resample(tone(np.random.default_rng(13),
+                           int(PROMPT_S * ENCODE_SR))[:, None], ENCODE_SR,
+                      SAMPLE_RATE)
+    prompt_wav = np.tile(prompt[None, :, 0], (N_REQUESTS, 1))
+    runs = {
+        f"DDIM-{STEPS}": (Synthesizer(device="cuda", dtype=torch.bfloat16,
+                                      num_inference_steps=STEPS), {}),
+        f"prompt DPM-{PROMPT_STEPS} CFG {GUIDANCE}": (Synthesizer(
+            config=Config(model=prompt_config()), device="cuda",
+            dtype=torch.bfloat16, num_inference_steps=PROMPT_STEPS,
+            sampler="dpm", guidance_scale=GUIDANCE),
+            {"prompt_wav": prompt_wav})}
+    for name, (synth, kw) in runs.items():
+        def run():
+            return synth.synthesize(TEXTS, **kw)   # host numpy: synced
+        run()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            times.append(time.perf_counter() - t0)
+        emit({"phase": "synth_time", "what": f"Synthesizer.synthesize "
+              f"{N_REQUESTS} x {AUDIO_S:.0f} s, {name}, bf16", "wall_s": times,
+              "median_wall_s": statistics.median(times),
+              "profile": profile_step(run), "card": smi})
+
+
 def phase_resnet(smi):
     """The fused resnet block at every block shape of one flagship UNet
-    forward: bf16 at B=8 (CFG's doubled batch of 4 requests; checked and
-    timed: kernel, plain version, and the channels-first library sequence)
-    and f32 at B=1 (checked).  Returns the bf16 sums over the forward."""
+    forward: bf16 at B=8 (CFG's doubled batch of 4 requests) and at B=4
+    (the DDIM slice's batch), where the tile rule picks other tiles, each
+    checked against the module arithmetic and against
+    fused_resnet_block_plain and run twice for the same bits; B=8 also
+    timed (kernel, its launches, plain version, and the channels-first
+    library sequence); f32 at B=1 (checked).  Then the wrapper's host
+    cost.  Returns the bf16 sums over the forward."""
     import torch
     import torch.nn.functional as F
     from prompt_tts_tpu_torch.config import ModelConfig
+    from prompt_tts_tpu_torch.ops.cuda.resnet import (
+        fused_resnet_block, fused_resnet_block_plain, resnet_tiles,
+    )
     from prompt_tts_tpu_torch.ops.resnet import (
         resnet_block, resnet_block_plain,
     )
@@ -820,14 +1049,16 @@ def phase_resnet(smi):
     emit({"phase": "resnet_shapes", "blocks": len(shapes),
           "shapes": [list(t) for t in shapes]})
     g = torch.Generator().manual_seed(12)
-    per_shape, err_all = {}, 0.0
+    per_shape, err_all, tiles_held = {}, 0.0, set()
     for _, T, cin, cout in shapes:
         if (T, cin, cout) in per_shape:
             continue
         row = {}
         for dtype, B, tol in ((torch.bfloat16, 2 * N_REQUESTS,
                                RESNET_TOL_BF16),
+                              (torch.bfloat16, N_REQUESTS, RESNET_TOL_BF16),
                               (torch.float32, 1, RESNET_TOL_F32)):
+            timed = dtype == torch.bfloat16 and B == 2 * N_REQUESTS
             block = _resnet_block(cin, cout, dtype, g)
             x = (torch.randn(B, T, cin, generator=g) * 1.5
                  + torch.randn(cin, generator=g)).to("cuda", dtype)
@@ -843,13 +1074,38 @@ def phase_resnet(smi):
                 dname = str(dtype).split(".")[-1]
                 rec = {"max_abs_err": err, "tol": tol * scale}
                 if dtype == torch.bfloat16:
+                    norm = block.norm1.norm
+
+                    def kernel():
+                        return fused_resnet_block(
+                            x, tp, block.kernel_weights, norm.num_groups,
+                            norm.eps)
+                    fused = fused_resnet_block_plain(
+                        x, tp, block.kernel_weights, norm.num_groups,
+                        norm.eps).float()
+                    d = (out.float() - fused).abs()
+                    excess = (d - FUSED_ATOL_BF16
+                              - FUSED_RTOL_BF16 * fused.abs()).max().item()
+                    same = torch.equal(out, resnet_block(block, x, temb))
+                    ok = ok and excess <= 0 and same
+                    tiles = resnet_tiles(B, T, cin, cout)
+                    tiles_held.add(tiles)
+                    rec.update({
+                        "fused_plain_max_abs_err": d.max().item(),
+                        "fused_plain_excess": excess,
+                        "fused_plain_tol": [FUSED_ATOL_BF16,
+                                            FUSED_RTOL_BF16],
+                        "same_bits_twice": same,
+                        "tiles": list(tiles)})
+                if timed:
                     xc = x.transpose(1, 2).contiguous()
-                    rec["ms"] = cuda_ms(lambda: resnet_block(block, x, temb),
-                                        20)
-                    rec["plain_ms"] = cuda_ms(
-                        lambda: resnet_block_plain(block, x, tp), 10)
-                    rec["library_ms"] = cuda_ms(
-                        lambda: resnet_sequence(block, xc, tp), 10)
+                    rec.update({
+                        "ms": cuda_ms(kernel, 20),
+                        "launch_ms": resnet_launch_ms(kernel),
+                        "plain_ms": cuda_ms(
+                            lambda: resnet_block_plain(block, x, tp), 10),
+                        "library_ms": cuda_ms(
+                            lambda: resnet_sequence(block, xc, tp), 10)})
                     w = 3 * cin * cout + 3 * cout * cout + (
                         cin * cout if cin != cout else 0)
                     rec.update(bound(2 * B * T * w,
@@ -860,21 +1116,28 @@ def phase_resnet(smi):
                   "B": B, **rec, "ok": ok, "card": smi})
             if not ok:
                 raise AssertionError(f"resnet T={T} {cin}->{cout} {dname}: "
-                                     f"max abs err {err} > {tol * scale}")
+                                     f"{rec}")
             err_all = max(err_all, err)
-            if dtype == torch.bfloat16:
+            if timed:
                 row = rec
             del block, x, out, ref
         per_shape[(T, cin, cout)] = row
+    emit({"phase": "resnet_tiles_held", "batches": [2 * N_REQUESTS,
+                                                    N_REQUESTS],
+          "tiles": sorted(list(t) for t in tiles_held)})
     unet = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0,
             "bytes": 0}
+    launch_ms = {}
     for _, T, cin, cout in shapes:
         r = per_shape[(T, cin, cout)]
         for key in unet:
             unet[key] += r[key]
+        for key, v in r["launch_ms"].items():
+            launch_ms[key] = launch_ms.get(key, 0.0) + v
     b = bound(unet.pop("flop"), unet.pop("bytes"), "bfloat16")
-    out = {"max_abs_err": err_all, **unet, "bound_ms": b["bound_ms"],
-           "bound_by": b["bound_by"],
+    out = {"max_abs_err": err_all, **unet, "launch_ms": launch_ms,
+           "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+           "host_us": resnet_host_us(smi),
            "library_note": "the block as torch calls in channels-first "
                            "[B,C,T] (group_norm, silu, conv1d): no one call "
                            "computes it",
@@ -1505,7 +1768,7 @@ def _kernel_class(name):
                      ("attention_bwd", r"attn_bwd"),
                      ("lstm", r"lstm_step"),
                      ("lstm_t", r"lstm_t_kernel"),
-                     ("resnet", r"gn_stats_kernel|conv_kernel<"),
+                     ("resnet", r"resnet_|gn_stats_kernel|conv_kernel<"),
                      ("rvq_encode", r"rvq_(prep|encode)"),
                      ("conv", r"fprop|dgrad|wgrad|conv|cudnn|nchwToNhwc|"
                               r"nhwcToNchw"),
@@ -1663,7 +1926,16 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from prompt_tts_tpu_torch.pipeline import full_f32
 
+    modes = {"--resnet-times": resnet_times,
+             "--resnet-tiles": resnet_tile_sweep,
+             "--synth-times": synth_times}
+    if any(a not in modes for a in sys.argv[1:]):
+        raise SystemExit(f"chip_smoke: arguments are any of {list(modes)}")
     smi = phase_card()
+    if sys.argv[1:]:
+        for a in sys.argv[1:]:
+            modes[a](smi)
+        return
     with full_f32():
         fwd = phase_attention_fwd(smi)
         lstm, lstm_t = phase_lstm(smi)

@@ -3,131 +3,221 @@
 Port of the TPU kernel ``prompt_tts_tpu/ops/pallas/resnet.py:
 fused_resnet_block``: the whole UNet ``ResnetBlock1D`` for inference, on
 channels-last ``[B, T, Cin]`` (f32 or bf16), with the time-embedding
-projection ``temb_proj [B, Cout]`` computed outside.  Three launches a
-call (GroupNorm statistics, conv1, conv2); ``fused_resnet_block.launches``
-counts calls.
+projection ``temb_proj [B, Cout]`` computed outside.  bf16 makes five
+launches a call (GroupNorm statistics; the activation pass ``silu(GN1(x))``;
+conv1 on ``wgmma``, fed by TMA; ``silu(GN2(h))``; conv2 on ``wgmma``) in
+the tile shape :func:`resnet_tiles` picks; f32 makes three on the CUDA
+cores.  ``fused_resnet_block.launches`` counts calls.
 
 The kernel takes its weights packed once (:func:`pack_resnet_weights`):
-k3 kernels as ``[3, Cin, Cout]`` and the shortcut as ``[Cin, Cout]`` in the
-activations' dtype, norms and biases as f32.  A CUDA tensor launches the
-kernel or raises; the plain version lives in ``ops/resnet.py``.
+k3 kernels as ``[3, Cout, Cin]`` and the shortcut as ``[Cout, Cin]``
+(K-major: input channels contiguous) in the activations' dtype, norms and
+biases as f32.  A CUDA tensor launches the kernel or raises; a CPU tensor
+runs :func:`fused_resnet_block_plain`, which rounds where the kernel
+rounds.
 """
 
 import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from prompt_tts_tpu_torch.ops.cuda import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUPS = 128
+MAX_CHANNELS_PER_GROUP = 256
+# The order of the packed tensors in the kernel's argument list.
+_ORDER = ("g1w", "g1b", "w1", "b1", "g2w", "g2b", "w2", "b2", "ws", "bs")
+
+# The bf16 products' tile shapes (rows BM of T, output channels BN), largest
+# first, and the SMs of the card (an H100 SXM has 132).
+TILES = ((128, 128), (64, 128), (64, 64))
+SMS = 132
 
 
-def pack_resnet_weights(block, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+def resnet_tiles(B: int, T: int, Cin: int, Cout: int) -> Tuple[int, int]:
+    """The bf16 products' tile shape ``(BM, BN)`` for a block: the largest
+    of :data:`TILES` whose grid (``B * ceil(T / BM) * ceil(Cout / BN)``
+    CTAs) fills at least half the SMs; where none does (small batches at
+    the deep levels), the smallest, which gives the most CTAs.  A 128 x 128
+    CTA (two consumer warpgroups, 140 KB of ring) holds an SM alone and
+    does its work in less than half the time of two 64-row CTAs, so it wins
+    from half a wave of CTAs on (PERF.md, the tile sweep).  ``Cin`` does not
+    enter: it sets the depth of the K loop, not the grid."""
+    del Cin
+    for bm, bn in TILES:
+        if 2 * B * -(-T // bm) * -(-Cout // bn) >= SMS:
+            return bm, bn
+    return TILES[-1]
+
+
+def pack_resnet_weights(block, dtype: torch.dtype) -> Dict[str, object]:
     """The kernel's layout of a ``ResnetBlock1D``'s weights, on its device:
-    ``w1 [3, Cin, Cout]``, ``w2 [3, Cout, Cout]``, ``ws [Cin, Cout]`` (or
-    None) in ``dtype``; ``g1w, g1b, b1, g2w, g2b, b2, bs`` in f32."""
-    def k3(conv):   # torch [Cout, Cin, 3] -> [3, Cin, Cout]
-        return conv.conv.weight.detach().permute(2, 1, 0).to(
+    ``w1 [3, Cout, Cin]``, ``w2 [3, Cout, Cout]``, ``ws [Cout, Cin]`` (or
+    None) in ``dtype``; ``g1w, g1b, b1, g2w, g2b, b2, bs`` in f32.  Also
+    ``spec`` (dtype, device, Cin, Cout), which each call checks in place of
+    the tensors, and the tensors' addresses in the kernel's order."""
+    def k3(conv):   # torch [Cout, Cin, 3] -> [3, Cout, Cin]
+        return conv.conv.weight.detach().permute(2, 0, 1).to(
             dtype).contiguous()
 
     def f32(t):
         return None if t is None else t.detach().float().contiguous()
 
     sc = block.conv_shortcut
-    return {
+    packed = {
         "g1w": f32(block.norm1.norm.weight), "g1b": f32(block.norm1.norm.bias),
         "w1": k3(block.conv1), "b1": f32(block.conv1.conv.bias),
         "g2w": f32(block.norm2.norm.weight), "g2b": f32(block.norm2.norm.bias),
         "w2": k3(block.conv2), "b2": f32(block.conv2.conv.bias),
-        "ws": None if sc is None else sc.conv.weight.detach()[..., 0].t().to(
+        "ws": None if sc is None else sc.conv.weight.detach()[..., 0].to(
             dtype).contiguous(),
         "bs": None if sc is None else f32(sc.conv.bias),
     }
+    _, cout, cin = packed["w1"].shape
+    for name in _ORDER:
+        t = packed[name]
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"pack_resnet_weights: {name} is not 16-byte "
+                             f"aligned (the kernel loads 16-byte vectors)")
+    packed["spec"] = (dtype, packed["w1"].device, cin, cout)
+    packed["ptrs"] = tuple(None if packed[k] is None else packed[k].data_ptr()
+                           for k in _ORDER)
+    return packed
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("resnet")
-    if lib.ptts_resnet_block.argtypes is None:
-        lib.ptts_resnet_partials.argtypes = [ctypes.c_int] * 4
-        lib.ptts_resnet_partials.restype = ctypes.c_longlong
-        lib.ptts_resnet_block.argtypes = ([ctypes.c_void_p] * 16
-                                          + [ctypes.c_int] * 5
-                                          + [ctypes.c_float, ctypes.c_int,
-                                             ctypes.c_void_p])
-        lib.ptts_resnet_block.restype = ctypes.c_int
+    lib.ptts_resnet_scratch_bytes.argtypes = [ctypes.c_int] * 7
+    lib.ptts_resnet_scratch_bytes.restype = ctypes.c_longlong
+    lib.ptts_resnet_block.argtypes = ([ctypes.c_void_p] * 14
+                                      + [ctypes.c_int] * 5 + [ctypes.c_float]
+                                      + [ctypes.c_int] * 3
+                                      + [ctypes.c_void_p])
+    lib.ptts_resnet_block.restype = ctypes.c_int
     return lib
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(*shape) -> int:
+    """Bytes of the kernel's scratch buffer for (B, T, Cin, Cout, groups,
+    dtype code, BM): the C library's own layout, asked once a shape."""
+    return _lib().ptts_resnet_scratch_bytes(*shape)
 
 
 def fused_resnet_block(x: torch.Tensor, temb_proj: torch.Tensor,
-                       packed: Dict[str, torch.Tensor], groups: int,
+                       packed: Dict[str, object], groups: int,
                        eps: float) -> torch.Tensor:
-    """x ``[B, T, Cin]`` (CUDA, f32 or bf16), temb_proj ``[B, Cout]``,
-    ``packed`` from :func:`pack_resnet_weights` at x's dtype -> ``[B, T,
-    Cout]`` at x's dtype."""
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_resnet_block: x on {x.device}; the plain "
-                         f"version is ops/resnet.py:resnet_block_plain")
+    """x ``[B, T, Cin]`` (f32 or bf16), temb_proj ``[B, Cout]``, ``packed``
+    from :func:`pack_resnet_weights` at x's dtype and device -> ``[B, T,
+    Cout]`` at x's dtype; bf16 in the tiles :func:`resnet_tiles` picks."""
+    return _launch(x, temb_proj, packed, groups, eps, None)
+
+
+def _launch(x: torch.Tensor, temb_proj: torch.Tensor,
+            packed: Dict[str, object], groups: int, eps: float,
+            tiles: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """:func:`fused_resnet_block` in the bf16 tile shape ``tiles`` (one of
+    :data:`TILES`; None: :func:`resnet_tiles`'s pick).  The card tests and
+    ``chip_smoke.py --resnet-tiles`` launch every tile through it."""
     if x.dtype not in _DTYPES:
         raise ValueError(f"fused_resnet_block: dtype {x.dtype} not supported")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("fused_resnet_block: x must be a contiguous "
                          "[B, T, Cin]")
     B, T, Cin = x.shape
-    w1, w2, ws = packed["w1"], packed["w2"], packed["ws"]
-    Cout = w1.shape[2]
-    if tuple(w1.shape) != (3, Cin, Cout) or tuple(w2.shape) != (3, Cout, Cout):
-        raise ValueError(f"fused_resnet_block: packed conv weights "
-                         f"{tuple(w1.shape)}, {tuple(w2.shape)} do not fit "
-                         f"x [.., .., {Cin}]")
-    if (ws is None) != (Cin == Cout) or (
-            ws is not None and tuple(ws.shape) != (Cin, Cout)):
-        raise ValueError("fused_resnet_block: the shortcut must be a 1x1 "
-                         "[Cin, Cout] exactly when Cin != Cout")
-    for name, t in packed.items():
-        if t is None:
-            continue
-        want = x.dtype if name in ("w1", "w2", "ws") else torch.float32
-        if t.device != x.device or t.dtype != want or not t.is_contiguous():
-            raise ValueError(f"fused_resnet_block: packed {name} is {t.dtype} "
-                             f"on {t.device}, wants contiguous {want} on "
-                             f"{x.device}")
+    dtype, device, cin, Cout = packed["spec"]
+    if cin != Cin:
+        raise ValueError(f"fused_resnet_block: packed weights for {cin} "
+                         f"input channels do not fit x [.., .., {Cin}]")
+    if x.device != device or x.dtype != dtype:
+        raise ValueError(f"fused_resnet_block: x is {x.dtype} on {x.device}, "
+                         f"the packed weights {dtype} on {device}")
     if tuple(temb_proj.shape) != (B, Cout) or temb_proj.device != x.device:
         raise ValueError(f"fused_resnet_block: temb_proj "
                          f"{tuple(temb_proj.shape)} on {temb_proj.device}, "
                          f"wants {(B, Cout)} on {x.device}")
     if not (0 < groups <= MAX_GROUPS) or Cin % groups or Cout % groups or (
-            Cin // groups > 256) or Cin % 8 or Cout % 8:
+            Cin // groups > MAX_CHANNELS_PER_GROUP) or Cin % 8 or Cout % 8:
         raise ValueError(f"fused_resnet_block: {groups} groups over "
                          f"{Cin} -> {Cout} channels not supported (channel "
                          f"counts must be multiples of 8)")
-    for name, t in (("x", x), ("w1", w1), ("w2", w2), ("ws", ws)):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"fused_resnet_block: {name} is not 16-byte "
-                             f"aligned (the kernel loads 16-byte vectors)")
+    if x.device.type == "cpu":
+        return fused_resnet_block_plain(x, temb_proj, packed, groups, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_resnet_block: unsupported device {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("fused_resnet_block: x is not 16-byte aligned (the "
+                         "kernel loads 16-byte vectors)")
+    bm, bn = resnet_tiles(B, T, Cin, Cout) if tiles is None else tiles
+    if (bm, bn) not in TILES:
+        raise ValueError(f"fused_resnet_block: tiles {(bm, bn)} not in "
+                         f"{TILES}")
+    code = _DTYPES[x.dtype]
     lib = _lib()
-    temb = temb_proj.float().contiguous()
-    h = torch.empty(B, T, Cout, device=x.device, dtype=x.dtype)
-    out = torch.empty_like(h)
-    stats = torch.empty(B, groups, 2, device=x.device, dtype=torch.float32)
-    part = torch.empty(lib.ptts_resnet_partials(B, T, Cout, groups),
-                       device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        err = lib.ptts_resnet_block(
-            x.data_ptr(), temb.data_ptr(), *(_ptr(packed[k]) for k in (
-                "g1w", "g1b", "w1", "b1", "g2w", "g2b", "w2", "b2", "ws",
-                "bs")),
-            h.data_ptr(), stats.data_ptr(), part.data_ptr(), out.data_ptr(),
-            B, T, Cin, Cout, groups, eps, _DTYPES[x.dtype],
-            _build.stream_handle(x.device))
+    # temb_proj in x's dtype, as the TPU kernel casts it
+    temb = temb_proj.to(x.dtype).contiguous()
+    out = torch.empty((B, T, Cout), device=x.device, dtype=x.dtype)
+    scratch = torch.empty(_scratch_bytes(B, T, Cin, Cout, groups, code, bm),
+                          device=x.device, dtype=torch.uint8)
+    args = (x.data_ptr(), temb.data_ptr(), *packed["ptrs"],
+            scratch.data_ptr(), out.data_ptr(), B, T, Cin, Cout, groups,
+            eps, code, bm, bn, _build.stream_handle(x.device))
+    if x.device.index == torch.cuda.current_device():
+        err = lib.ptts_resnet_block(*args)
+    else:
+        with torch.cuda.device(x.device):
+            err = lib.ptts_resnet_block(*args)
     _build.check(err, "resnet block kernel launch")
     fused_resnet_block.launches += 1
     return out
 
 
 fused_resnet_block.launches = 0
+
+
+def fused_resnet_block_plain(x: torch.Tensor, temb_proj: torch.Tensor,
+                             packed: Dict[str, object], groups: int,
+                             eps: float) -> torch.Tensor:
+    """What the kernel computes, in torch ops on the packed weights, rounded
+    to x's dtype where the kernel rounds: ``a = silu(GN1(x))`` and ``a2 =
+    silu(GN2(h))`` before each product, ``h`` once after ``+ b1 +
+    temb_proj``, and the output; GroupNorm statistics in f64, products and
+    sums in f32; ``temb_proj`` taken in x's dtype, as the kernel (and the
+    TPU kernel) takes it.  The plain version of :func:`fused_resnet_block`
+    (its CPU path and the card's reference); the model's own CPU path is
+    ``ops/resnet.py:resnet_block_plain``."""
+    dt = x.dtype
+
+    def act(v, gamma, beta):   # silu(GN(v)) rounded, v [B, T, C]
+        B, T, C = v.shape
+        g = v.double().reshape(B, T, groups, C // groups)
+        mean = g.mean(dim=(1, 3))
+        var = (g - mean[:, None, :, None]).square().mean(dim=(1, 3))
+        rstd = (var + eps).rsqrt()
+        per_c = C // groups
+        mean_c = mean.float().repeat_interleave(per_c, dim=1)[:, None]
+        rstd_c = rstd.float().repeat_interleave(per_c, dim=1)[:, None]
+        scale = gamma * rstd_c
+        shift = beta - mean_c * scale
+        return F.silu(v.float() * scale + shift).to(dt)
+
+    def conv3(a, w):   # "same" k3, zero edges: [B, T, C] -> f32 [B, T, Cout]
+        T = a.shape[1]
+        ap = F.pad(a.float(), (0, 0, 1, 1))
+        w = w.float()
+        return sum(ap[:, s:s + T] @ w[s].t() for s in range(3))
+
+    h = (conv3(act(x, packed["g1w"], packed["g1b"]), packed["w1"])
+         + packed["b1"] + temb_proj.to(dt).float()[:, None, :]).to(dt)
+    out = conv3(act(h, packed["g2w"], packed["g2b"]), packed["w2"]) + packed[
+        "b2"]
+    if packed["ws"] is None:
+        out = out + x.float()
+    else:
+        out = out + (x.float() @ packed["ws"].float().t() + packed["bs"])
+    return out.to(dt)

@@ -33,7 +33,10 @@ from prompt_tts_tpu_torch.ops.cuda.lstm import (
     lstm_recurrence, lstm_recurrence_plain, lstm_recurrence_t,
     lstm_recurrence_t_plain,
 )
-from prompt_tts_tpu_torch.ops.cuda.resnet import fused_resnet_block
+from prompt_tts_tpu_torch.ops.cuda.resnet import (
+    TILES, _launch as resnet_launch, fused_resnet_block,
+    fused_resnet_block_plain,
+)
 from prompt_tts_tpu_torch.ops.resnet import (
     resnet_block, resnet_block_plain,
 )
@@ -73,6 +76,13 @@ LSTM_TOL = 1e-5
 # the difference in h passes through GN2 and conv2 and the output's own
 # rounding.
 RESNET_TOL_F32, RESNET_TOL_BF16 = 1e-4, 3e-2
+# The bf16 kernel vs fused_resnet_block_plain, which rounds a, h, a2 and the
+# output where the kernel does: GroupNorm statistics in the last f32 bits
+# and f32 sums in another order can move a value across a bf16 rounding
+# boundary, |err| <= FUSED_ATOL_BF16 + FUSED_RTOL_BF16 |ref|: one ulp of
+# the output, plus 2^-8 for such a flip in a, h or a2 carried through a
+# product.
+FUSED_RTOL_BF16, FUSED_ATOL_BF16 = 2.0 ** -7, 2.0 ** -8
 # Synthesis on the card against the CPU, f32 (TF32 off): latents the
 # model-level 5e-4 contract, the wav decoded from the same codes the
 # codec's 1e-5 decode contract.
@@ -337,6 +347,64 @@ def test_resnet_kernel_matches_plain(dev, T, cin, cout, dtype):
     tol = RESNET_TOL_F32 if dtype == torch.float32 else RESNET_TOL_BF16
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= tol * max(1.0, ref.float().abs().max().item()), err
+
+
+def _assert_fused_close(out, ref):
+    err = (out.float() - ref.float()).abs()
+    limit = FUSED_ATOL_BF16 + FUSED_RTOL_BF16 * ref.float().abs()
+    assert bool((err <= limit).all()), (err - limit).max().item()
+
+
+@pytest.mark.parametrize("T,cin,cout", [(113, 768, 768), (113, 1536, 768),
+                                        (225, 768, 768), (225, 1280, 768),
+                                        (225, 1536, 768)])
+def test_resnet_bf16_kernel_at_the_deep_levels(dev, T, cin, cout):
+    """The UNet's deep levels at CFG's batch of 8 (batch boundaries inside
+    the grid, ragged T tiles, the skip concatenations' 1x1 shortcut):
+    against the plain version that rounds where the kernel rounds, and
+    against the module arithmetic."""
+    block, x, temb = _resnet_case(dev, 8, T, cin, cout, torch.bfloat16)
+    with torch.no_grad(), full_f32():
+        tp = block.time_emb_proj(F.silu(temb))
+        out = resnet_block(block, x, temb)
+        fused = fused_resnet_block_plain(x, tp, block.kernel_weights, 32,
+                                         block.norm1.norm.eps)
+        ref = resnet_block_plain(block, x, tp)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (8, T, cout)
+    _assert_fused_close(out, fused)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= RESNET_TOL_BF16 * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize("tiles", TILES)
+@pytest.mark.parametrize("B,T,cin,cout", [(3, 150, 192, 320),
+                                          (2, 70, 320, 320)])
+def test_resnet_bf16_kernel_every_tile(dev, tiles, B, T, cin, cout):
+    """Every tile shape the rule may pick, on ragged shapes: T no tile
+    multiple, Cout no multiple of 128 or 256, groups of 6 and 10 channels
+    (straddling the 8-channel vectors and the 64-channel slabs), the 1x1
+    and the identity shortcut."""
+    block, x, temb = _resnet_case(dev, B, T, cin, cout, torch.bfloat16)
+    before = fused_resnet_block.launches
+    with torch.no_grad(), full_f32():
+        tp = block.time_emb_proj(F.silu(temb))
+        out = resnet_launch(x, tp, block.kernel_weights, 32,
+                            block.norm1.norm.eps, tiles)
+        fused = fused_resnet_block_plain(x, tp, block.kernel_weights, 32,
+                                         block.norm1.norm.eps)
+    torch.cuda.synchronize()
+    assert fused_resnet_block.launches == before + 1
+    _assert_fused_close(out, fused)
+
+
+def test_resnet_bf16_kernel_is_deterministic_with_a_shortcut(dev):
+    """The bf16 path at B=8 with the 1x1 shortcut: the same bits twice."""
+    block, x, temb = _resnet_case(dev, 8, 225, 1536, 768, torch.bfloat16)
+    with torch.no_grad():
+        a = resnet_block(block, x, temb)
+        b = resnet_block(block, x, temb)
+    assert torch.equal(a, b)
 
 
 def test_resnet_kernel_is_deterministic(dev):
