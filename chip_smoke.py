@@ -17,7 +17,8 @@ Phases, each printed as one JSON object per line:
      at every head dim on ragged shapes, and on the prompt path's inputs
      (CFG's null text with every key masked, cross-attention over 550 + 32
      keys, the prompt encoder's calls); both LSTM schedules at the
-     decoder's B=4, the encoder's B=32 and the prompt encode's T=225; the
+     decoder's B=4, the encoder's B=32 and the prompt encode's T=225, run
+     twice for the same bits, ms a layer and us a step; the
      fused resnet block at every block shape of one UNet forward (bf16 at
      B=8, held to the module arithmetic and to fused_resnet_block_plain,
      run twice for the same bits, timed per launch by the profiler, and
@@ -65,14 +66,16 @@ Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises (non-zero exit); without CUDA it exits non-zero
 before any result.
 
-    python3 chip_smoke.py --resnet-times --resnet-tiles --synth-times
+    python3 chip_smoke.py --lstm-times --resnet-times --resnet-tiles \
+        --synth-times
 
-runs timings alone, any of them, after the build: the resnet kernel at
-every block shape (per launch, the library sequence, the wrapper's host
-cost), its tile shapes at B=8 and B=1, and the two synthesis slices' warm
-walls with a profile.  ``--resnet-times`` and ``--synth-times`` use only
-what earlier versions of the package have too, so that two checkouts can be
-timed in one call.
+runs timings alone, any of them, after the build: both LSTM kernels at the
+paths' three shapes beside cuDNN, the resnet kernel at every block shape
+(per launch, the library sequence, the wrapper's host cost), its tile
+shapes at B=8 and B=1, and the two synthesis slices' warm walls with a
+profile.  ``--lstm-times``, ``--resnet-times`` and ``--synth-times`` use
+only what earlier versions of the package have too, so that two checkouts
+can be timed in one call.
 """
 
 import dataclasses
@@ -198,6 +201,11 @@ ATTN_CALLS = 2 * sum(n for _, _, n in UNET_ATTN) + TEXT_LAYERS
 # prompt encoder's 2 self-attention blocks over the 225 -> 57 frame stem
 # (8 heads x 96) and its pooling of 32 queries over them
 PROMPT_TOKENS, PROMPT_T, PROMPT_BLOCKS = 32, 57, 2
+# (T, B) of the LSTM calls on the paths: the decoder's (the synthesis
+# slices' batch), the encoder's (the encode slice's 32), and the prompt
+# encode's T=225
+LSTM_SHAPES = ((900, N_REQUESTS), (900, ENCODE_BATCH),
+               (int(PROMPT_S * 75), N_REQUESTS))
 # the kernels' launch counters, by name in the kernels line
 KERNELS = ("attention_fwd", "attention_bwd", "lstm", "lstm_t", "rvq_encode",
            "resnet")
@@ -689,58 +697,69 @@ def phase_attention_bwd(smi, train_batch):
              "exp_ms": fwd_exp_ms, "unit": unit + ", with the lse"})
 
 
-def _lstm_case(smi, T, B, g):
-    """Both LSTM kernels (the step schedule on w_hh [H,4H], the persistent
-    one on w_hh_t [4H,H], the same weights) against their plain versions,
-    timed beside cuDNN.  Returns a row for each."""
+def _lstm_inputs(T, B, g, H=512):
+    """x_proj [T,B,4H], w_hh [H,4H] and the same weights as w_hh_t [4H,H],
+    and cuDNN's LSTM on x_proj as its input (w_ih = identity, zero biases,
+    the same w_hh; it does one extra [4H,4H] input projection)."""
     import torch
-    from prompt_tts_tpu_torch.ops.cuda.lstm import (
-        lstm_recurrence, lstm_recurrence_plain, lstm_recurrence_t,
-        lstm_recurrence_t_plain, lstm_t_grid, UNITS_PER_CTA,
-    )
-    H = 512
     with torch.no_grad():
         x = torch.randn(T, B, 4 * H, generator=g, device="cuda") * 0.5
         w = torch.randn(H, 4 * H, generator=g, device="cuda") * H ** -0.5
         w_t = w.t().contiguous()
-        # cuDNN's LSTM on x_proj as its input: w_ih = identity, zero biases,
-        # the same w_hh; it does one extra [4H,4H] input projection
         lib = torch.nn.LSTM(4 * H, H, device="cuda")
         lib.weight_ih_l0.copy_(torch.eye(4 * H, device="cuda"))
         lib.weight_hh_l0.copy_(w_t)
         lib.bias_ih_l0.zero_()
         lib.bias_hh_l0.zero_()
+    return x, w, w_t, lib
+
+
+def _lstm_case(smi, T, B, g):
+    """Both LSTM kernels (the step schedule on w_hh [H,4H], the persistent
+    one on w_hh_t [4H,H], the same weights) against their plain versions,
+    twice for the same bits, timed beside cuDNN.  Returns a row for each."""
+    import torch
+    from prompt_tts_tpu_torch.ops.cuda.lstm import (
+        lstm_plan, lstm_recurrence, lstm_recurrence_plain, lstm_recurrence_t,
+        lstm_recurrence_t_plain, lstm_t_grid,
+    )
+    H = 512
+    with torch.no_grad():
+        x, w, w_t, lib = _lstm_inputs(T, B, g, H)
         lib_ms = cuda_ms(lambda: lib(x), 3)
         rows = {}
-        for name, fn, plain, wt in (
-                ("lstm", lstm_recurrence, lstm_recurrence_plain, w),
-                ("lstm_t", lstm_recurrence_t, lstm_recurrence_t_plain, w_t)):
+        for name, schedule, fn, plain, wt in (
+                ("lstm", "step", lstm_recurrence, lstm_recurrence_plain, w),
+                ("lstm_t", "persistent", lstm_recurrence_t,
+                 lstm_recurrence_t_plain, w_t)):
             out = fn(x, wt)
+            again = fn(x, wt)
             ref = plain(x, wt)
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
-            ms = cuda_ms(lambda: fn(x, wt), 3)
+            same = torch.equal(out, again)
+            ms = cuda_ms(lambda: fn(x, wt), 5)
             plain_ms = cuda_ms(lambda: plain(x, wt), 2)
-            ok = bool(torch.isfinite(out).all()) and err <= LSTM_TOL
+            ok = bool(torch.isfinite(out).all()) and err <= LSTM_TOL and same
             flop = T * B * (2 * H * 4 * H + 10 * H)
             nbytes = 4 * (T * B * 4 * H + H * 4 * H + T * B * H)
             b = bound(flop, nbytes, "float32")
-            extra = {}
+            extra = lstm_plan(schedule, B, H)
             if name == "lstm_t":
-                grid, max_ctas = lstm_t_grid(B, H)
-                extra = {"units_per_cta": UNITS_PER_CTA, "grid": grid,
-                         "max_resident_ctas": max_ctas}
+                extra["grid"], extra["max_resident_ctas"] = lstm_t_grid(B, H)
             emit({"phase": "kernel", "kernel": name,
                   "case": f"T={T} B={B} H={H}", "dtype": "float32",
-                  "max_abs_err": err, "tol": LSTM_TOL, "ms": ms,
-                  "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "max_abs_err": err, "tol": LSTM_TOL, "bit_identical": same,
+                  "ms": ms, "us_per_step": ms * 1e3 / T, "plain_ms": plain_ms,
+                  "library_ms": lib_ms,
                   "library_note": "cuDNN nn.LSTM with w_ih = I: one extra "
                                   "4Hx4H input projection", **extra, **b,
                   "ok": ok, "card": smi})
             if not ok:
                 raise AssertionError(f"{name} T={T} B={B}: max abs err {err} "
-                                     f"> {LSTM_TOL}")
-            rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                     f"(tol {LSTM_TOL}), same bits {same}")
+            rows[name] = {"max_abs_err": err, "ms": ms,
+                          "us_per_step": ms * 1e3 / T, "plain_ms": plain_ms,
                           "library_ms": lib_ms, "bound_ms": b["bound_ms"],
                           "bound_by": b["bound_by"],
                           "unit": f"one layer, T={T} B={B} H={H}"}
@@ -748,19 +767,56 @@ def _lstm_case(smi, T, B, g):
 
 
 def phase_lstm(smi):
-    """Both LSTM kernels at the decoder's batch (the synthesis slices' 4,
-    T=900), at the encoder's (the encode slice's 32) and at the prompt
-    encode's T=225, B=4.  Returns the step and persistent rows."""
+    """Both LSTM kernels at the paths' three shapes (``LSTM_SHAPES``).
+    Returns the step and persistent rows."""
     import torch
     g = torch.Generator("cuda").manual_seed(2)
-    dec = _lstm_case(smi, 900, N_REQUESTS, g)
-    enc = _lstm_case(smi, 900, ENCODE_BATCH, g)
-    prompt = _lstm_case(smi, int(PROMPT_S * 75), N_REQUESTS, g)
+    dec, enc, prompt = (_lstm_case(smi, T, B, g) for T, B in LSTM_SHAPES)
     rows = {}
     for name in ("lstm", "lstm_t"):
         rows[name] = dict(dec[name], encoder_b32=enc[name],
                           prompt_encode=prompt[name])
     return rows["lstm"], rows["lstm_t"]
+
+
+def lstm_times(smi):
+    """``--lstm-times``: both LSTM kernels at the paths' three shapes beside
+    cuDNN (f32, TF32 off), no checks: ms a layer and us a step by CUDA
+    events, the kernels and cuDNN in turns, and the host's ms to enqueue
+    one call.  Uses only ``lstm_recurrence`` and
+    ``lstm_recurrence_t``, which earlier versions of the package have too,
+    so that two checkouts can be timed in one call."""
+    import torch
+    from prompt_tts_tpu_torch.ops.cuda.lstm import (
+        lstm_recurrence, lstm_recurrence_t,
+    )
+    from prompt_tts_tpu_torch.pipeline import full_f32
+    g = torch.Generator("cuda").manual_seed(2)
+    for T, B in LSTM_SHAPES:
+        x, w, w_t, lib = _lstm_inputs(T, B, g)
+        runs = {"lstm": lambda: lstm_recurrence(x, w),
+                "lstm_t": lambda: lstm_recurrence_t(x, w_t),
+                "cudnn": lambda: lib(x)}
+        ms = {k: [] for k in runs}
+        host = {k: [] for k in runs}
+        # cuDNN in f32, as the kernels (and phase_lstm's comparison)
+        with torch.no_grad(), full_f32():
+            for _ in range(3):
+                for k, fn in runs.items():
+                    ms[k].append(cuda_ms(fn, 5))
+                    # the host's time to enqueue one call (900 launches for
+                    # the step kernel), the card idle before it
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    host[k].append((time.perf_counter() - t0) * 1e3)
+                    torch.cuda.synchronize()
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        emit({"phase": "lstm_time", "case": f"T={T} B={B} H=512",
+              "ms": med, "us_per_step": {k: v * 1e3 / T
+                                         for k, v in med.items()},
+              "host_ms": {k: statistics.median(v) for k, v in host.items()},
+              "ms_runs": ms, "card": smi})
 
 
 def resnet_shapes(cfg):
@@ -1926,7 +1982,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from prompt_tts_tpu_torch.pipeline import full_f32
 
-    modes = {"--resnet-times": resnet_times,
+    modes = {"--lstm-times": lstm_times,
+             "--resnet-times": resnet_times,
              "--resnet-tiles": resnet_tile_sweep,
              "--synth-times": synth_times}
     if any(a not in modes for a in sys.argv[1:]):

@@ -21,8 +21,10 @@ from prompt_tts_tpu_torch.ops.cuda.lstm import (
 # The LSTM recurrence's two schedules: "step" (csrc/lstm.cu, one launch per
 # timestep) and "persistent" (csrc/lstm_t.cu, one cooperative launch).  The
 # default is the one the H100 measured faster at every batch of the codec's
-# paths (B = 4 decode and prompt encode, B = 32 generate_codes; PERF.md
-# section 6).
+# paths (PERF.md section 6): "persistent", 2.47 / 4.27 / 0.574 ms a layer
+# against 3.59 / 6.53 / 0.907 at T=900 B=4 (decode), T=900 B=32
+# (generate_codes) and T=225 B=4 (prompt encode), H = 512, NVIDIA H100 80GB
+# HBM3 at 700.00 W (chip_smoke.py).
 LSTM_SCHEDULES = ("step", "persistent")
 DEFAULT_LSTM_SCHEDULE = "persistent"
 

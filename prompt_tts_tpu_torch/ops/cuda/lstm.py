@@ -5,11 +5,13 @@ f, g, o (torch's), zero initial state, f32, in two schedules:
 
 * :func:`lstm_recurrence` (``csrc/lstm.cu``), the port of the TPU kernel
   ``prompt_tts_tpu/ops/pallas/lstm.py:lstm_recurrence``: w_hh ``[H, 4H]``,
-  one step kernel per timestep;
+  one step kernel per timestep, chained by programmatic dependent launch;
 * :func:`lstm_recurrence_t` (``csrc/lstm_t.cu``), the port of
   ``lstm_recurrence_t``: w_hh_t ``[4H, H]`` in torch layout, one persistent
   cooperative launch with a grid barrier per step.
 
+Both stage h_{t-1} in shared memory once a step and share the step's
+arithmetic (``csrc/lstm.cuh``); :func:`lstm_plan` is their launch shape.
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version.  ``.launches`` counts the calls that launched a kernel (one per
 layer).
@@ -20,6 +22,62 @@ import ctypes
 import torch
 
 from prompt_tts_tpu_torch.ops.cuda import _build
+
+# csrc/lstm.cuh: hidden units a CTA owns (both kernels), the most batch
+# rows of h_{t-1} it stages at once
+UNITS_PER_CTA = 4
+_ROWS, _CHUNK = 4 * UNITS_PER_CTA, 32
+# The most shared memory a CTA of the step kernel may take so that two fit
+# an SM, as programmatic dependent launch needs (the next step's CTAs wait
+# beside the running ones): an H100's 228 KB an SM, less 1 KB reserved a
+# CTA, halved.
+STEP_SMEM_MAX = (233472 - 2 * 1024) // 2
+
+
+def lstm_plan(schedule: str, B: int, H: int) -> dict:
+    """The launch shape of the ``schedule`` kernel ("step" or
+    "persistent") at batch ``B`` and hidden size ``H``: ``ctas`` (H /
+    UNITS_PER_CTA), ``chunk`` (the batch rows of h_{t-1} a CTA stages at
+    once, padded to its register tile's 4 or 8 rows) and ``smem`` (a
+    CTA's shared memory in bytes, as ``csrc/lstm.cuh:layout`` lays it
+    out).
+
+    Raises ``ValueError`` where H is not a multiple of UNITS_PER_CTA, or
+    where a step kernel's CTA would leave no room for a second on an SM
+    (``STEP_SMEM_MAX``: H <= 576 at B >= 32, H <= 1436 at B <= 4).  The
+    persistent grid's co-residency is the card's to decide
+    (:func:`lstm_t_grid`)."""
+    if schedule not in ("step", "persistent"):
+        raise ValueError(f"lstm_plan: unknown schedule {schedule!r}")
+    if B <= 0 or H <= 0 or H % UNITS_PER_CTA:
+        raise ValueError(f"LSTM kernels: hidden size {H} must be a positive "
+                         f"multiple of {UNITS_PER_CTA} (batch {B})")
+    chunk = min(-(-B // 4) * 4 if B <= 8 else -(-B // 8) * 8, _CHUNK)
+    tile = 4 if chunk <= 8 else 8
+    parts = 2 if (_ROWS // tile) * (chunk // tile) <= 4 else 1
+    state_rows = chunk if schedule == "step" else B
+    floats = (_ROWS * H + chunk * H + _ROWS * chunk + parts * _ROWS * chunk
+              + UNITS_PER_CTA * state_rows)
+    plan = {"ctas": H // UNITS_PER_CTA, "chunk": chunk, "smem": 4 * floats}
+    if schedule == "step" and plan["smem"] > STEP_SMEM_MAX:
+        raise ValueError(
+            f"lstm_recurrence: hidden size {H} at batch {B} needs "
+            f"{plan['smem']} bytes of shared memory a CTA, more than the "
+            f"{STEP_SMEM_MAX} that leave room for two CTAs an SM")
+    return plan
+
+
+def _check_inputs(name, x_proj, w):
+    if x_proj.device.type != "cuda" or w.device != x_proj.device:
+        raise ValueError(f"{name}: x_proj on {x_proj.device}, weights on "
+                         f"{w.device}")
+    if x_proj.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError(f"{name}: x_proj and the weights must be float32")
+    if not (x_proj.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if x_proj.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"{name}: inputs must be 16-byte aligned (the "
+                         f"kernel reads them in 16-byte pieces)")
 
 
 def lstm_recurrence_plain(x_proj: torch.Tensor,
@@ -43,14 +101,15 @@ def lstm_recurrence_plain(x_proj: torch.Tensor,
     return torch.stack(out)
 
 
-def _fn():
+def _lib():
     lib = _build.load("lstm")
-    fn = lib.ptts_lstm_recurrence
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.ptts_lstm_recurrence.argtypes is None:
+        lib.ptts_lstm_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.ptts_lstm_smem_bytes.restype = ctypes.c_longlong
+        lib.ptts_lstm_recurrence.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.ptts_lstm_recurrence.restype = ctypes.c_int
+    return lib
 
 
 def lstm_recurrence(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
@@ -65,22 +124,14 @@ def lstm_recurrence(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
                          f"{tuple(w_hh.shape)} do not match 4*H ({4 * H})")
     if x_proj.device.type == "cpu":
         return lstm_recurrence_plain(x_proj, w_hh)
-    if x_proj.device.type != "cuda" or w_hh.device != x_proj.device:
-        raise ValueError(f"lstm_recurrence: x_proj on {x_proj.device}, "
-                         f"w_hh on {w_hh.device}")
-    if x_proj.dtype != torch.float32 or w_hh.dtype != torch.float32:
-        raise ValueError("lstm_recurrence: x_proj and w_hh must be float32")
-    if not (x_proj.is_contiguous() and w_hh.is_contiguous()):
-        raise ValueError("lstm_recurrence: inputs must be contiguous")
-    if H % 16 or H > 1280:
-        raise ValueError(f"lstm_recurrence: hidden size {H} must be a "
-                         f"multiple of 16 and at most 1280")
+    _check_inputs("lstm_recurrence", x_proj, w_hh)
+    lstm_plan("step", B, H)
     out = torch.empty(T, B, H, device=x_proj.device, dtype=torch.float32)
     c = torch.empty(B, H, device=x_proj.device, dtype=torch.float32)
     with torch.cuda.device(x_proj.device):
-        err = _fn()(x_proj.data_ptr(), w_hh.data_ptr(), out.data_ptr(),
-                    c.data_ptr(), T, B, H,
-                    _build.stream_handle(x_proj.device))
+        err = _lib().ptts_lstm_recurrence(
+            x_proj.data_ptr(), w_hh.data_ptr(), out.data_ptr(), c.data_ptr(),
+            T, B, H, _build.stream_handle(x_proj.device))
     _build.check(err, "LSTM kernel launch")
     lstm_recurrence.launches += 1
     return out
@@ -110,6 +161,8 @@ def lstm_recurrence_t_plain(x_proj: torch.Tensor,
 def _lib_t():
     lib = _build.load("lstm_t")
     if lib.ptts_lstm_recurrence_t.argtypes is None:
+        lib.ptts_lstm_t_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.ptts_lstm_t_smem_bytes.restype = ctypes.c_longlong
         lib.ptts_lstm_t_max_ctas.argtypes = [ctypes.c_int] * 2 + [
             ctypes.POINTER(ctypes.c_int)]
         lib.ptts_lstm_t_max_ctas.restype = ctypes.c_int
@@ -117,10 +170,6 @@ def _lib_t():
             ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.ptts_lstm_recurrence_t.restype = ctypes.c_int
     return lib
-
-
-# hidden units a CTA of the persistent kernel owns (csrc/lstm_t.cu: K)
-UNITS_PER_CTA = 4
 
 
 def lstm_t_grid(B: int, H: int, device=None):
@@ -154,24 +203,15 @@ def lstm_recurrence_t(x_proj: torch.Tensor,
                          f"({4 * H})")
     if x_proj.device.type == "cpu":
         return lstm_recurrence_t_plain(x_proj, w_hh_t)
-    if x_proj.device.type != "cuda" or w_hh_t.device != x_proj.device:
-        raise ValueError(f"lstm_recurrence_t: x_proj on {x_proj.device}, "
-                         f"w_hh_t on {w_hh_t.device}")
-    if x_proj.dtype != torch.float32 or w_hh_t.dtype != torch.float32:
-        raise ValueError("lstm_recurrence_t: x_proj and w_hh_t must be "
-                         "float32")
-    if not (x_proj.is_contiguous() and w_hh_t.is_contiguous()):
-        raise ValueError("lstm_recurrence_t: inputs must be contiguous")
-    if H % UNITS_PER_CTA:
-        raise ValueError(f"lstm_recurrence_t: hidden size {H} must be a "
-                         f"multiple of {UNITS_PER_CTA}")
+    _check_inputs("lstm_recurrence_t", x_proj, w_hh_t)
+    lstm_plan("persistent", B, H)
     lstm_t_grid(B, H, x_proj.device)
     out = torch.empty(T, B, H, device=x_proj.device, dtype=torch.float32)
-    barrier = torch.empty(2, device=x_proj.device, dtype=torch.int32)
+    counter = torch.empty(1, device=x_proj.device, dtype=torch.int32)
     with torch.cuda.device(x_proj.device):
         err = _lib_t().ptts_lstm_recurrence_t(
             x_proj.data_ptr(), w_hh_t.data_ptr(), out.data_ptr(),
-            barrier.data_ptr(), T, B, H,
+            counter.data_ptr(), T, B, H,
             _build.stream_handle(x_proj.device))
     _build.check(err, "persistent LSTM kernel launch")
     lstm_recurrence_t.launches += 1

@@ -264,8 +264,9 @@ def test_attention_kernel_on_every_card(dev):
 
 @pytest.mark.parametrize("B,H", [(1, 32), (4, 512), (9, 64), (32, 512)])
 def test_lstm_kernel_matches_plain(dev, B, H):
-    """B = 9 takes two passes over the kernel's 8-row batch tile; B = 32,
-    the encoder's batch, four."""
+    """B = 9 pads the kernel's 4-row batch tile to 12 rows; B = 32, the
+    encoder's batch, fills its 32-row chunk; H = 32 leaves most of the 64
+    slices of H without a column."""
     g = torch.Generator(dev).manual_seed(1)
     T = 60
     x = torch.randn(T, B, 4 * H, generator=g, device=dev) * 0.5
@@ -295,11 +296,72 @@ def test_lstm_t_kernel_matches_plain(dev, B):
     torch.testing.assert_close(out, ref, atol=LSTM_TOL, rtol=0)
 
 
+def _lstm_pair(dev, schedule, T, B, H, seed=3):
+    """(kernel output, plain output, the kernel run again) of one schedule
+    on x_proj and w_hh made from one seed."""
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(T, B, 4 * H, generator=g, device=dev) * 0.5
+    w = torch.randn(H, 4 * H, generator=g, device=dev) * H ** -0.5
+    if schedule == "step":
+        fn, plain = lstm_recurrence, lstm_recurrence_plain
+    else:
+        fn, plain, w = lstm_recurrence_t, lstm_recurrence_t_plain, \
+            w.t().contiguous()
+    with full_f32():
+        out, again, ref = fn(x, w), fn(x, w), plain(x, w)
+    torch.cuda.synchronize()
+    return out, ref, again
+
+
+@pytest.mark.parametrize("B", [1, 4, 32])
+@pytest.mark.parametrize("schedule", ["step", "persistent"])
+def test_lstm_kernels_over_900_steps(dev, schedule, B):
+    """The codec's T = 900 at H = 512: the persistent grid barrier and the
+    step kernels' programmatic dependent launches only show a fault over
+    many steps.  Within LSTM_TOL of the plain version, and the same bits
+    twice (fixed summation order, no atomics on data)."""
+    out, ref, again = _lstm_pair(dev, schedule, 900, B, 512)
+    torch.testing.assert_close(out, ref, atol=LSTM_TOL, rtol=0)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("B,H", [(6, 512), (9, 64), (20, 512), (100, 512)])
+@pytest.mark.parametrize("schedule", ["step", "persistent"])
+def test_lstm_kernels_ragged_batches(dev, schedule, B, H):
+    """Each tile layout the kernels have: B = 6 (8 rows of 4 x 4 tiles, a
+    warp a tile), B = 9 at a small H (16 rows of 8 x 8 tiles, two warps a
+    tile), B = 20 (24 rows: 6 tiles, 6 of the 8 warps); B = 100, four
+    chunks of 32 rows inside each step, the last of 4."""
+    out, ref, again = _lstm_pair(dev, schedule, 50, B, H)
+    torch.testing.assert_close(out, ref, atol=LSTM_TOL, rtol=0)
+    assert torch.equal(out, again)
+
+
+def test_lstm_plan_matches_the_kernels(dev):
+    """lstm_plan's shared memory is what the kernels lay out; the step
+    kernel runs at the largest H its rule accepts at B = 32 (576), and the
+    wrapper refuses the next (580) before launching."""
+    from prompt_tts_tpu_torch.ops.cuda.lstm import _lib, _lib_t, lstm_plan
+    for B, H in ((1, 32), (4, 512), (9, 64), (32, 512), (100, 512),
+                 (32, 576), (4, 1436)):
+        assert _lib().ptts_lstm_smem_bytes(B, H) == \
+            lstm_plan("step", B, H)["smem"]
+        assert _lib_t().ptts_lstm_t_smem_bytes(B, H) == \
+            lstm_plan("persistent", B, H)["smem"]
+    out, ref, _ = _lstm_pair(dev, "step", 20, 32, 576)
+    torch.testing.assert_close(out, ref, atol=LSTM_TOL, rtol=0)
+    x = torch.zeros(2, 32, 4 * 580, device=dev)
+    before = lstm_recurrence.launches
+    with pytest.raises(ValueError, match="two CTAs an SM"):
+        lstm_recurrence(x, torch.zeros(580, 4 * 580, device=dev))
+    assert lstm_recurrence.launches == before
+
+
 def test_lstm_t_refuses_a_grid_that_cannot_be_resident(dev):
     """H = 2048: 4H x H f32 is 64 MB of W_hh, more than every SM's shared
-    memory together, so the 512 CTAs of 4 units (128 KB each, one an SM)
-    cannot all be resident.  The wrapper raises rather than launching a
-    grid barrier that deadlocks."""
+    memory together, so the 512 CTAs of 4 units (160 KB each at B = 1, one
+    an SM) cannot all be resident.  The wrapper raises rather than launching
+    a grid barrier that deadlocks."""
     x = torch.zeros(2, 1, 4 * 2048, device=dev)
     w = torch.zeros(4 * 2048, 2048, device=dev)
     before = lstm_recurrence_t.launches
@@ -466,11 +528,16 @@ def test_attention_kernel_all_masked_keys(dev, dtype):
 
 
 def test_lstm_wrapper_checks(dev):
-    x = torch.zeros(5, 2, 96, device=dev)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        lstm_recurrence(x, torch.zeros(24, 96, device=dev))
+    x = torch.zeros(5, 2, 88, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        lstm_recurrence(x, torch.zeros(22, 88, device=dev))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        lstm_recurrence_t(x, torch.zeros(88, 22, device=dev))
     with pytest.raises(ValueError, match="float32"):
-        lstm_recurrence(x.double(), torch.zeros(24, 96, device=dev).double())
+        lstm_recurrence(x.double(), torch.zeros(22, 88, device=dev).double())
+    x = torch.zeros(5 * 2 * 96 + 1, device=dev)[1:].view(5, 2, 96)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        lstm_recurrence(x, torch.zeros(24, 96, device=dev))
 
 
 @pytest.fixture
