@@ -66,16 +66,18 @@ Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises (non-zero exit); without CUDA it exits non-zero
 before any result.
 
-    python3 chip_smoke.py --lstm-times --resnet-times --resnet-tiles \
-        --synth-times
+    python3 chip_smoke.py --lstm-times --rvq-times --resnet-times \
+        --resnet-tiles --synth-times
 
 runs timings alone, any of them, after the build: both LSTM kernels at the
-paths' three shapes beside cuDNN, the resnet kernel at every block shape
-(per launch, the library sequence, the wrapper's host cost), its tile
-shapes at B=8 and B=1, and the two synthesis slices' warm walls with a
-profile.  ``--lstm-times``, ``--resnet-times`` and ``--synth-times`` use
-only what earlier versions of the package have too, so that two checkouts
-can be timed in one call.
+paths' three shapes beside cuDNN, the RVQ encode at [32, 900], [4, 225]
+and [1, 225] beside the cdist sequence with both of its bounds (f32 on the
+CUDA cores, 3 x TF32 on the tensor cores), the resnet kernel at every
+block shape (per launch, the library sequence, the wrapper's host cost),
+its tile shapes at B=8 and B=1, and the two synthesis slices' warm walls
+with a profile.  ``--lstm-times``, ``--rvq-times``, ``--resnet-times`` and
+``--synth-times`` use only what earlier versions of the package have too,
+so that two checkouts can be timed in one call.
 """
 
 import dataclasses
@@ -183,7 +185,7 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_RTOL, ZERO_GRAD = 1e-4, 1e-3, 1e-6
 # written once) over the memory rate, and operations over the peak rate of
 # the inputs' type (NVIDIA's H100 SXM data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tfloat32": 495e12}
 # A third floor for attention: its exps on the special-function unit, 16 a
 # clock per SM (Hopper), at the card's maximum SM clock (read by
 # phase_card from nvidia-smi, with the SM count from torch).
@@ -206,6 +208,10 @@ PROMPT_TOKENS, PROMPT_T, PROMPT_BLOCKS = 32, 57, 2
 # encode's T=225
 LSTM_SHAPES = ((900, N_REQUESTS), (900, ENCODE_BATCH),
                (int(PROMPT_S * 75), N_REQUESTS))
+# [B, T] of the RVQ encode calls on the paths: the encode slice's batch,
+# the prompt encode's (4 requests x 225 frames) and one prompt
+RVQ_TIME_SHAPES = ((ENCODE_BATCH, 900), (N_REQUESTS, int(PROMPT_S * 75)),
+                   (1, int(PROMPT_S * 75)))
 # the kernels' launch counters, by name in the kernels line
 KERNELS = ("attention_fwd", "attention_bwd", "lstm", "lstm_t", "rvq_encode",
            "resnet")
@@ -1453,34 +1459,18 @@ def phase_prompt_slice(smi, tmp):
 def prompt_rvq(smi, runner, prompt_wav):
     """The RVQ kernel against its plain version on the encoder latents of
     the prompt wavs ``[B, 225, 128]`` (a ragged last tile), by the index
-    contract; prints each vector whose codes differ."""
+    contract, twice for the same bits; the launch plan there must split
+    the codes over a thread-block cluster."""
     import torch
-    from prompt_tts_tpu_torch.ops.cuda.rvq import (
-        index_contract, rvq_encode, rvq_encode_plain,
-    )
     from prompt_tts_tpu_torch.pipeline import full_f32
     wav = torch.as_tensor(prompt_wav, device=DEVICE)
     with torch.no_grad(), full_f32():
         emb = runner.codec.encoder(wav[..., None]).contiguous()
-        cb = runner.codec.codebooks[:8].detach()
-        got = rvq_encode(emb, cb)
-        ref = rvq_encode_plain(emb, cb)
-        torch.cuda.synchronize()
-        r = index_contract(emb, cb, got, ref)
-    B, T, D = emb.shape
-    r["ok"] = (r["violations"] == 0
-               and r["differ"] <= RVQ_MAX_DIFFER * r["vectors"]
-               and tuple(got.shape) == (B, cb.shape[0], T))
-    ref = ref.to(got.device)
-    differing = [{"b": b, "t": t, "kernel": got[b, :, t].tolist(),
-                  "plain": ref[b, :, t].tolist()}
-                 for b, t in (got != ref).any(1).nonzero().tolist()]
-    emit({"phase": "kernel", "kernel": "rvq_encode", "case": "prompt latents",
-          "shape": f"[{B}, {T}, {D}] x [{cb.shape[0]}, {cb.shape[1]}, {D}]",
-          **r, "max_differ_share": RVQ_MAX_DIFFER,
-          "differing_vectors": differing, "card": smi})
-    if not r["ok"]:
-        raise AssertionError(f"rvq_encode on the prompt latents: {r}")
+    cb = runner.codec.codebooks[:8].detach()
+    r = rvq_check(smi, "prompt latents", emb, cb)
+    plan = _rvq_plan(emb.shape[0] * emb.shape[1], cb.shape[0], cb.shape[1])
+    if plan["cluster"] < 2:
+        raise AssertionError(f"rvq_plan at the prompt encode: {plan}")
     return r
 
 
@@ -1592,6 +1582,73 @@ def write_wav_tar(path, n, seed=0):
     return lengths
 
 
+def cdist_sequence(x, cb):
+    """The RVQ encode's library-call yardstick: the n_q-layer cascade as
+    ``torch.cdist`` + argmin, gather and subtract (no one PyTorch call
+    computes it)."""
+    import torch
+    r = x.reshape(-1, x.shape[-1])
+    for e in cb:
+        idx = torch.cdist(r, e).argmin(-1)
+        r = r - e[idx]
+
+
+def rvq_bounds(N, n_q, K, D=128):
+    """The least time of one RVQ encode of N vectors: its operations in f32
+    on the CUDA cores (the kernel before 3 x TF32), and the three TF32
+    products the kernel runs on the tensor cores, each beside the bytes."""
+    flop = 2 * N * n_q * K * D
+    nbytes = 4 * (N * D + n_q * K * D + N * n_q)
+    return {"f32": bound(flop, nbytes, "float32"),
+            "tf32x3": bound(3 * flop, nbytes, "tfloat32")}
+
+
+def _rvq_plan(N, n_q, K):
+    """``rvq_plan`` where the package has it (earlier versions do not)."""
+    try:
+        from prompt_tts_tpu_torch.ops.cuda.rvq import rvq_plan
+    except ImportError:
+        return None
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return rvq_plan(N, n_q, K, sms)._asdict()
+
+
+def rvq_check(smi, case, x, cb):
+    """The RVQ kernel against its plain version (cuBLAS, TF32 off) on
+    ``x``, by the index contract, run twice for the same bits; prints the
+    launch plan and each vector whose codes differ."""
+    import torch
+    from prompt_tts_tpu_torch.ops.cuda.rvq import (
+        index_contract, rvq_encode, rvq_encode_plain,
+    )
+    from prompt_tts_tpu_torch.pipeline import full_f32
+    B, T, D = x.shape
+    n_q, K, _ = cb.shape
+    with full_f32():
+        got = rvq_encode(x, cb)
+        again = rvq_encode(x, cb)
+        ref = rvq_encode_plain(x, cb)
+        torch.cuda.synchronize()
+    r = index_contract(x, cb, got, ref)
+    r["same_bits_twice"] = bool(torch.equal(got, again))
+    r["ok"] = (r["violations"] == 0 and r["same_bits_twice"]
+               and r["differ"] <= RVQ_MAX_DIFFER * r["vectors"]
+               and tuple(got.shape) == (B, n_q, T))
+    ref = ref.to(got.device)
+    differing = [{"b": b, "t": t, "kernel": got[b, :, t].tolist(),
+                  "plain": ref[b, :, t].tolist()}
+                 for b, t in (got != ref).any(1).nonzero().tolist()[:20]]
+    emit({"phase": "kernel", "kernel": "rvq_encode", "case": case,
+          "shape": f"[{B}, {T}, {D}] x [{n_q}, {K}, {D}]",
+          "plan": _rvq_plan(B * T, n_q, K), **r,
+          "max_differ_share": RVQ_MAX_DIFFER,
+          "differing_vectors": differing, "card": smi})
+    if not r["ok"]:
+        raise AssertionError(f"rvq_encode {case}: {r}")
+    return r
+
+
 def phase_rvq(smi, emb, cb):
     """The RVQ kernel against its plain version (cuBLAS, TF32 off) at
     ``[32, 900, 128] x [8, 1024, 128]``: on the encode slice's latents
@@ -1599,55 +1656,91 @@ def phase_rvq(smi, emb, cb):
     slice's codebooks ``cb``; then timed on the latents."""
     import torch
     from prompt_tts_tpu_torch.ops.cuda.rvq import (
-        index_contract, rvq_encode, rvq_encode_plain,
+        rvq_encode, rvq_encode_plain,
     )
-    n_q = cb.shape[0]
-    B, T, D = emb.shape
+    from prompt_tts_tpu_torch.pipeline import full_f32
+    n_q, K, D = cb.shape
+    B, T, _ = emb.shape
     g = torch.Generator(DEVICE).manual_seed(10)
     normal = torch.randn(emb.shape, generator=g, device=DEVICE)
-    res = {}
-    for name, x in (("latents", emb), ("normal", normal)):
-        got = rvq_encode(x, cb)
-        ref = rvq_encode_plain(x, cb)
-        torch.cuda.synchronize()
-        r = index_contract(x, cb, got, ref)
-        r["ok"] = (r["violations"] == 0
-                   and r["differ"] <= RVQ_MAX_DIFFER * r["vectors"]
-                   and tuple(got.shape) == (B, n_q, T))
-        emit({"phase": "kernel", "kernel": "rvq_encode", "case": name,
-              "shape": f"[{B}, {T}, {D}] x [{n_q}, {cb.shape[1]}, {D}]",
-              **r, "max_differ_share": RVQ_MAX_DIFFER, "card": smi})
-        if not r["ok"]:
-            raise AssertionError(f"rvq_encode {name}: {r}")
-        res[name] = r
-
-    def cdist_loop(x):
-        """The library-call comparator: the 8-layer cascade as cdist +
-        argmin, gather and subtract (no one PyTorch call computes it)."""
-        r = x.reshape(-1, D)
-        for e in cb:
-            idx = torch.cdist(r, e).argmin(-1)
-            r = r - e[idx]
-
-    ms = cuda_ms(lambda: rvq_encode(emb, cb), 20)
-    plain_ms = cuda_ms(lambda: rvq_encode_plain(emb, cb), 5)
-    lib_ms = cuda_ms(lambda: cdist_loop(emb), 5)
-    K = cb.shape[1]
-    flop = 2 * B * T * n_q * K * D
-    nbytes = 4 * (B * T * D + n_q * K * D + B * n_q * T)
-    b = bound(flop, nbytes, "float32")
+    res = {name: rvq_check(smi, name, x, cb)
+           for name, x in (("latents", emb), ("normal", normal))}
+    with full_f32():
+        ms = cuda_ms(lambda: rvq_encode(emb, cb), 20)
+        plain_ms = cuda_ms(lambda: rvq_encode_plain(emb, cb), 5)
+        lib_ms = cuda_ms(lambda: cdist_sequence(emb, cb), 5)
+    b = rvq_bounds(B * T, n_q, K, D)
     emit({"phase": "kernel_time", "kernel": "rvq_encode", "case": "latents",
           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
           "library_note": "8 x (torch.cdist + argmin, gather, subtract)",
-          **b, "card": smi})
+          **b["tf32x3"], "bound_f32_cuda_cores_ms": b["f32"]["bound_ms"],
+          "card": smi})
     return {"max_abs_err": max(r["max_score_gap"] for r in res.values()),
             "max_abs_err_note": "largest f64 score gap between the kernel's "
                                 "and the plain version's chosen codes",
             "differ": {k: r["differ"] for k, r in res.items()},
             "vectors": B * T, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"],
+            "library_ms": lib_ms, "bound_ms": b["tf32x3"]["bound_ms"],
+            "bound_by": b["tf32x3"]["bound_by"],
+            "bound_note": "3 TF32 products at 495 TFLOP/s; in f32 on the "
+                          "CUDA cores (67 TFLOP/s): "
+                          f"{b['f32']['bound_ms']:.4f} ms",
             "unit": f"one call, [{B}, {T}, {D}] x [{n_q}, {K}, {D}], f32"}
+
+
+def rvq_device_ms(fn, n=10):
+    """Device ms a call of ``fn`` spends in the RVQ kernels (prep and
+    search), by the profiler, by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        m = re.search(r"rvq_(prep|encode)_kernel", e.key)
+        if m and us > 0:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + us / 1e3 / n
+    out["total"] = sum(out.values())
+    return out
+
+
+def rvq_times(smi):
+    """``--rvq-times``: the RVQ kernel at the paths' shapes -- the encode
+    slice's [32, 900], the prompt encode's [4, 225] and one prompt
+    [1, 225] -- beside the cdist sequence, x [B, T, 128] and codebooks
+    [8, 1024, 128] seeded normal, in turns, three times each, by CUDA
+    events (20 calls a turn; the codebooks stay in L2 between calls), and
+    the kernels' device time a call by the profiler; no checks.  Uses only ``rvq_encode``, which earlier versions of the
+    package have too, so that two checkouts can be timed in one call."""
+    import torch
+    from prompt_tts_tpu_torch.ops.cuda.rvq import rvq_encode
+    from prompt_tts_tpu_torch.pipeline import full_f32
+    g = torch.Generator("cuda").manual_seed(11)
+    cb = torch.randn(8, 1024, 128, generator=g, device="cuda")
+    for B, T in RVQ_TIME_SHAPES:
+        x = torch.randn(B, T, 128, generator=g, device="cuda") * 2.0
+        runs = {"kernel": lambda: rvq_encode(x, cb),
+                "cdist": lambda: cdist_sequence(x, cb)}
+        ms = {k: [] for k in runs}
+        with torch.no_grad(), full_f32():
+            for _ in range(3):
+                for k, fn in runs.items():
+                    ms[k].append(cuda_ms(fn, 20))
+            device_ms = rvq_device_ms(runs["kernel"])
+        b = rvq_bounds(B * T, 8, 1024)
+        emit({"phase": "rvq_time", "case": f"[{B}, {T}, 128] x "
+              f"[8, 1024, 128] f32",
+              "ms": {k: statistics.median(v) for k, v in ms.items()},
+              "ms_runs": ms, "kernel_device_ms": device_ms,
+              "plan": _rvq_plan(B * T, 8, 1024),
+              "bound_tf32x3_ms": b["tf32x3"]["bound_ms"],
+              "bound_f32_cuda_cores_ms": b["f32"]["bound_ms"],
+              "card": smi})
 
 
 def phase_encode_slice(smi, tmp):
@@ -1983,6 +2076,7 @@ def main():
     from prompt_tts_tpu_torch.pipeline import full_f32
 
     modes = {"--lstm-times": lstm_times,
+             "--rvq-times": rvq_times,
              "--resnet-times": resnet_times,
              "--resnet-tiles": resnet_tile_sweep,
              "--synth-times": synth_times}

@@ -69,13 +69,14 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C interface,
 // loaded with ctypes by prompt_tts_tpu_torch/ops/cuda/resnet.py).  The TMA
 // maps are encoded on the host by cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint, so nothing links libcuda.
+// cudaGetDriverEntryPoint (tma_host.cuh), so nothing links libcuda.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <initializer_list>
 
+#include "tma_host.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -734,31 +735,6 @@ resnet_conv_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
 
 // ------------------------------------------------------------ host side
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A tensor map over a bf16 array of `rank` (2 or 3) dims d0 (innermost),
 // d1, d2, with a 64-element x `rows` (x 1) box and the 128-byte swizzle.
 bool encode(CUtensorMap* m, const void* p, int rank, long long d0, long long d1,
@@ -773,23 +749,6 @@ bool encode(CUtensorMap* m, const void* p, int rank, long long d0, long long d1,
             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The dynamic shared-memory opt-in holds per device: one bit per device
-// that a kernel instance has been configured on.
-template <typename K>
-cudaError_t opt_in(K kern, int smem, unsigned long long* configured) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (!(*configured & bit)) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    *configured |= bit;
-  }
-  return cudaSuccess;
 }
 
 struct Maps {

@@ -1,8 +1,9 @@
-// Hopper building blocks shared by the bf16 tensor-core kernels: cp.async
+// Hopper building blocks shared by the tensor-core kernels: cp.async
 // tile copies into the tensor cores' unswizzled shared-memory layout and
 // its wgmma descriptors (attention.cu, attention_bwd.cu); TMA tile loads,
-// mbarriers and 128-byte-swizzled descriptors (resnet.cu); the wgmma
-// instructions they run.  sm_90a only.
+// mbarriers and 128-byte-swizzled descriptors (resnet.cu, rvq.cu); the
+// bf16 wgmma instructions they run; TF32 products and thread-block
+// cluster barriers and loads (rvq.cu).  sm_90a only.
 //
 // The tile layout.  A [rows][D] bf16 tile (rows a multiple of 8, D of 16)
 // is kept as 8 x 8 "core matrices" of 128 contiguous bytes: element
@@ -406,6 +407,124 @@ __device__ __forceinline__ void tma_prefetch_map(const void* map) {
 // hardware barrier `id` (1-15; __syncthreads uses 0).
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// Arrive at hardware barrier `id` of `n` threads without waiting.
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+
+// One contiguous copy global -> shared of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned), counted in bytes on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// ---- TF32 products (rvq.cu) ----
+//
+// wgmma's .tf32 operands are K-major only.  An f32 tile whose rows are
+// loaded as TMA boxes of 32 floats (128 bytes) with the 128-byte swizzle is
+// the same swizzled K-major layout as a 64-wide bf16 box: a K step of 8
+// tf32 is 32 bytes, as one of 16 bf16 is, so sw128_desc serves both and
+// the step ks (8 columns) within a box starts 32 (ks % 4) bytes in.
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: the low 13 bits of the result are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|), both rounded explicitly (the tensor core
+// would truncate the low 13 bits of an f32 operand): a product of two
+// split values to f32 accuracy is hi.hi + hi.lo + lo.hi.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// d[0:32] (+)= A[64x8] B[8x64] in TF32 with f32 accumulation: A from
+// registers (per warp, rows gid and gid + 8 of its 16, columns tig and
+// tig + 4: a[0] (gid, tig), a[1] (gid + 8, tig), a[2] (gid, tig + 4),
+// a[3] (gid + 8, tig + 4), gid = lane / 4, tig = lane % 4), B in shared
+// memory, K-major.  The accumulator layout is the bf16 products'.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// Move this warpgroup's register budget to R registers a thread (all its
+// warps together): a producer gives registers up, consumers take them.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+// ---- Thread-block clusters (rvq.cu) ----
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster-wide barrier, split: every non-exited thread of every CTA
+// of the cluster arrives (all 32 lanes of a warp together), then waits.
+// The arrival releases this thread's earlier shared-memory writes to the
+// cluster; the wait acquires every other thread's.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared-memory address `addr` of this CTA mapped to the same offset
+// in the CTA of rank `rank` of the cluster.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Two 32-bit words from distributed shared memory.
+__device__ __forceinline__ uint2 ld_cluster_u32x2(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared::cluster.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y) : "r"(addr) : "memory");
+  return v;
 }
 
 }  // namespace ptts

@@ -41,7 +41,8 @@ from prompt_tts_tpu_torch.ops.resnet import (
     resnet_block, resnet_block_plain,
 )
 from prompt_tts_tpu_torch.ops.cuda.rvq import (
-    index_contract, rvq_encode, rvq_encode_plain,
+    CLUSTERS, RvqPlan, _launch as rvq_launch, index_contract, rvq_encode,
+    rvq_encode_plain,
 )
 from prompt_tts_tpu_torch.pipeline import (
     CodecRunner, Synthesizer, full_f32, latents_to_codes, random_init_,
@@ -781,6 +782,63 @@ def test_rvq_kernel_first_index_wins(dev):
     assert (got[0, 0, :10] == 5).all() and (got[1, 0, :10] == 63).all()
     ref = rvq_encode_plain(x.cpu(), cb.cpu())
     assert index_contract(x.cpu(), cb.cpu(), got, ref)["violations"] == 0
+
+
+def _rvq_kernel_check(x, cb, bm, cluster):
+    """The kernel at the launch shape (bm, cluster), twice: the same bits,
+    and the index contract against the plain version."""
+    plan = RvqPlan(bm, cluster, 0)
+    got = rvq_launch(x, cb, plan)
+    again = rvq_launch(x, cb, plan)
+    with full_f32():
+        ref = rvq_encode_plain(x, cb)
+    torch.cuda.synchronize()
+    B, T, _ = x.shape
+    assert got.shape == (B, cb.shape[0], T) and torch.equal(got, again)
+    r = index_contract(x, cb, got, ref)
+    assert r["violations"] == 0, (bm, cluster, r)
+    assert r["differ"] <= RVQ_MAX_DIFFER * B * T + 1, (bm, cluster, r)
+    return got
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("N", [900, 225, 28800])
+def test_rvq_kernel_every_cluster_size(dev, N, cluster):
+    """Every cluster size at both tile heights (64 and 128 vectors a CTA),
+    at the prompt encode's N (4 x 225 and 1 x 225) and the encode slice's
+    (32 x 900), K = 1024, 8 layers: twice for the same bits."""
+    x, cb = _rvq_inputs(dev, 1, N, 8, seed=N + cluster)
+    for bm in (64, 128):
+        _rvq_kernel_check(x, cb, bm, cluster)
+
+
+def test_rvq_kernel_first_index_wins_across_the_cluster(dev):
+    """Duplicated codes in different CTAs' code ranges: 5 and 1000 (ranks 0
+    and 7 at 8 CTAs, 0 and 1 at 2), 127 and 128 (ranks 0 and 1 at 8 CTAs,
+    neighbouring tiles without a cluster): the lower index wins at every
+    launch shape."""
+    x, cb = _rvq_inputs(dev, 1, 200, 2, seed=4)
+    cb[:, 1000] = cb[:, 5]
+    cb[:, 128] = cb[:, 127]
+    x[0, :20] = cb[0, 5]
+    x[0, 20:40] = cb[0, 127]
+    for bm in (64, 128):
+        for cluster in CLUSTERS:
+            got = _rvq_kernel_check(x, cb, bm, cluster)
+            assert (got[0, 0, :20] == 5).all(), (bm, cluster)
+            assert (got[0, 0, 20:40] == 127).all(), (bm, cluster)
+
+
+@pytest.mark.parametrize("N", [1, 65, 129, 1000])
+def test_rvq_kernel_ragged_last_tile(dev, N):
+    """A last tile of 1, 1 or 65, 1 and 8 or 40 vectors (at 64 and 128 a
+    CTA), with and without a cluster; T = N / 5 where 5 divides N, so the
+    output's [B, n_q, T] indexing crosses batch rows inside a tile."""
+    B = 5 if N % 5 == 0 else 1
+    x, cb = _rvq_inputs(dev, B, N // B, 4, seed=N)
+    for bm in (64, 128):
+        for cluster in (1, 8):
+            _rvq_kernel_check(x, cb, bm, cluster)
 
 
 def test_rvq_wrapper_counts_and_checks(dev):

@@ -22,7 +22,8 @@ from prompt_tts_tpu_torch.codec.rvq import (
     codebook_decode, codebook_quantize, rvq_decode, rvq_encode,
 )
 from prompt_tts_tpu_torch.ops.cuda.rvq import (
-    CODE_TILE, index_contract, rvq_encode_plain,
+    CODE_TILE, NEAR_TIE, RvqPlan, distances_tf32x3, index_contract,
+    rvq_encode_plain, rvq_encode_tf32x3, rvq_plan, split_tf32, tf32_rna,
 )
 
 
@@ -116,3 +117,89 @@ def test_wrapper_checks_shapes():
         rvq_encode(torch.from_numpy(x), torch.from_numpy(cb[..., :8]))
     with pytest.raises(ValueError, match=r"\[B,T,D\]"):
         rvq_encode(torch.from_numpy(x[0]), torch.from_numpy(cb))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The flagship-size products run on one torch thread: tier-1 shares
+    the cores among its workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """To nearest, ties away from zero, the low 13 bits cleared; the split
+    recovers x to ~2^-22 relative."""
+    u = 2.0 ** -10                       # a TF32 ulp at 1
+    x = torch.tensor([1.0, 1 + u / 2, 1 + u / 4, 1 + 3 * u / 4, -(1 + u / 2),
+                      3.14159265, -0.0, 6.5e-39], dtype=torch.float32)
+    got = tf32_rna(x)
+    want = torch.tensor([1.0, 1 + u, 1.0, 1 + u, -(1 + u), 3.140625, -0.0,
+                         6.5e-39], dtype=torch.float32)
+    want[-1] = tf32_rna(want[-1:])[0]    # a denormal keeps 10 bits too
+    assert torch.equal(got.view(torch.int32) & 0x1FFF,
+                       torch.zeros(8, dtype=torch.int32))
+    assert torch.equal(got, want)
+    r = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        4096).astype(np.float32))
+    hi, lo = split_tf32(r)
+    assert ((hi.double() + lo.double() - r.double()).abs()
+            <= 2.0 ** -21 * r.double().abs()).all()
+
+
+def test_tf32x3_scores_and_indices_at_flagship_size():
+    """The kernel's arithmetic at K = 1024, D = 128 over 3 layers on 2,048
+    seeded vectors: each distance within NEAR_TIE / 10 of (|r| + |e|)^2 of
+    the f64 one (one TF32 product, for contrast, is beyond NEAR_TIE), and
+    its indices hold the index contract against the plain version with no
+    violation."""
+    _, cb = _case("flagship")
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal((4, 512, 128)) * 1.5).astype(np.float32)
+    xt, cbt = torch.from_numpy(x), torch.from_numpy(cb[:3])
+    r = xt.reshape(-1, 128)
+    worst = worst_one = 0.0
+    for e in cbt:
+        d = distances_tf32x3(r, e, torch.sum(e * e, dim=1)).double()
+        rd, ed = r.double(), e.double()
+        d64 = ((rd * rd).sum(1, keepdim=True) - 2.0 * rd @ ed.T
+               + (ed * ed).sum(1)[None])
+        scale = (rd.norm(dim=1)[:, None] + ed.norm(dim=1)[None]) ** 2
+        worst = max(worst, float(((d - d64).abs() / scale).max()))
+        one = ((r * r).sum(1, keepdim=True) - 2.0 * tf32_rna(r) @ tf32_rna(e).T
+               + (e * e).sum(1)[None]).double()
+        worst_one = max(worst_one, float(((one - d64).abs() / scale).max()))
+        r = r - e[torch.argmin(d, dim=1)]
+    assert worst <= NEAR_TIE / 10, worst
+    assert worst_one > NEAR_TIE, worst_one
+    got = rvq_encode_tf32x3(xt, cbt)
+    assert got.dtype == torch.int32 and got.shape == (4, 3, 512)
+    rep = index_contract(xt, cbt, got, rvq_encode_plain(xt, cbt))
+    assert rep["violations"] == 0, rep
+
+
+@pytest.mark.parametrize("N, want", [
+    (32 * 900, RvqPlan(128, 1, 225)),   # the encode slice: 2 warpgroups
+    (4 * 225, RvqPlan(64, 8, 120)),     # the prompt encode: a cluster of 8
+    (1 * 225, RvqPlan(64, 8, 32)),      # one prompt
+    (3 * 333, RvqPlan(64, 8, 128)),     # ragged: 15 full tiles and 39
+    (8000, RvqPlan(64, 2, 250)),        # 125 tiles: 2 cover the SMs
+    (132 * 128, RvqPlan(128, 1, 132)),  # 128-row tiles just fill them
+])
+def test_rvq_plan_at_the_path_shapes(N, want):
+    assert rvq_plan(N, 8, 1024) == want
+    assert rvq_plan(N, 32, 1024) == want    # n_q does not move the grid
+
+
+def test_rvq_plan_cluster_divides_the_codes_and_refuses_the_rest():
+    # K / cluster must be whole 64-code tiles: 192 codes only split by 1,
+    # 128 by 2
+    assert rvq_plan(900, 8, 192) == RvqPlan(64, 1, 15)
+    assert rvq_plan(900, 8, 128) == RvqPlan(64, 2, 30)
+    assert rvq_plan(900, 8, 1024, sms=16).cluster == 2
+    for N, n_q, K in ((0, 8, 1024), (900, 0, 1024), (900, 8, 1000),
+                      (900, 8, 0)):
+        with pytest.raises(ValueError, match="multiple of 64"):
+            rvq_plan(N, n_q, K)
