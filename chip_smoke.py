@@ -49,6 +49,8 @@ Phases, each printed as one JSON object per line:
      dropout off, on the card (kernels) and on the CPU (plain versions),
      same weights, batch, noise and timesteps: loss, gradient norm and
      every gradient compared.
+  6b. prompt_train_small: the same for the full-width prompt model at
+     batch 2, with the condition drop nulling row 0's text and prompt.
   7. encode_slice: ``python -m prompt_tts_tpu_torch.cli.generate_codes
      --batch_size 32`` on a wav tar this script writes (64 utterances of
      2-12 s at 22.05 kHz, with transcripts): checks the code tar and that
@@ -62,6 +64,22 @@ Phases, each printed as one JSON object per line:
      launches of both attention kernels and the parameters' dtype, then
      times warm steps and profiles one.  Audio -> codes -> training, all
      on the card.
+  8b. prompt_train_slice: ``cli.train`` on a prompt-conditioned config
+     this script writes (the condition drop at 0.1), ``--bf16 --ema_decay
+     0.999``, the same batch and code tar (225-frame prompt crops), one
+     epoch with a checkpoint; checks the losses, the f32 parameters, the
+     checkpoint's EMA, the launches and the backward kernel's calls at the
+     prompt encoder's shapes (57 x 57 and the 32 x 57 pool, D=96) and over
+     the 582 cross-attention keys; then times warm steps and profiles one.
+  9. ckpt_synth: ``cli.synthesize --ckpt_dir --codec_params`` (a codec
+     from ``cli.convert_codec --random``) from the prompt train slice's
+     EMA (a 3 s 22.05 kHz voice prompt, DPM-25, CFG 3) and from the
+     single-speaker train slice's parameters (DDIM-50), 4 requests each:
+     the launches of every inference kernel, and the codes and wavs of an
+     in-process ``Synthesizer`` on the same restored state, bit for bit.
+  10. the attention backward at the prompt family's training shapes, f32
+     and bf16 against its plain version, twice for the same bits, then
+     timed beside SDPA's backward with its bound.
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises (non-zero exit); without CUDA it exits non-zero
 before any result.
@@ -178,7 +196,8 @@ ENC_TOL = 1e-4
 # outputs agree to its 5e-4 contract and the MSE averages them), the global
 # gradient norm and every gradient tensor to 1e-3 in relative L2.  A tensor
 # whose gradient is zero in exact arithmetic (a bias in front of a
-# GroupNorm) is rounding noise on both sides, held below 1e-6 of the norm.
+# GroupNorm) is rounding noise on both sides, held below 1e-6 of the
+# gradient norm of its sub-model (text encoder, prompt encoder, UNet).
 TRAIN_LOSS_TOL, TRAIN_GRAD_RTOL, ZERO_GRAD = 1e-4, 1e-3, 1e-6
 
 # Least time for a call: bytes moved (each input read once, each output
@@ -203,6 +222,12 @@ ATTN_CALLS = 2 * sum(n for _, _, n in UNET_ATTN) + TEXT_LAYERS
 # prompt encoder's 2 self-attention blocks over the 225 -> 57 frame stem
 # (8 heads x 96) and its pooling of 32 queries over them
 PROMPT_TOKENS, PROMPT_T, PROMPT_BLOCKS = 32, 57, 2
+PROMPT_HEADS, PROMPT_HEAD_DIM = 8, 96
+# attention calls of one prompt-family forward (and train step)
+PROMPT_ATTN_CALLS = ATTN_CALLS + PROMPT_BLOCKS + 1
+# the prompt family's train slice trains for guidance: the condition drop
+# (text and prompt nulled together) at this rate, and an EMA at this decay
+PROMPT_COND_DROP, PROMPT_EMA = 0.1, 0.999
 # (T, B) of the LSTM calls on the paths: the decoder's (the synthesis
 # slices' batch), the encoder's (the encode slice's 32), and the prompt
 # encode's T=225
@@ -595,9 +620,6 @@ def phase_attention_bwd(smi, train_batch):
     calls: kernel, plain and SDPA forward.  Returns the backward's and the
     forward's sums."""
     import torch
-    from prompt_tts_tpu_torch.ops.attention import (
-        attention_bwd_plain, flash_attention_plain,
-    )
     from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
     from prompt_tts_tpu_torch.ops.cuda.attention_bwd import attention_bwd
     g = torch.Generator("cuda").manual_seed(1)
@@ -627,72 +649,20 @@ def phase_attention_bwd(smi, train_batch):
             "fwd_lse_ms": 0.0, "flop": 0, "bytes": 0, "exps": 0}
     fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0,
            "bytes": 0, "exps": 0}
-    B, dtype = train_batch, torch.bfloat16
+    B = train_batch
     for label, Tq, Tk, H, D, masked, n in attn_cases():
-        q, k, v, bias = attn_inputs(g, B, Tq, Tk, H, D, masked, dtype)
-        do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
-        o, lse = flash_attention(q, k, v, bias, return_lse=True)
-        fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, bias,
-                                                 return_lse=True), 10)
-        fwd_plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, bias),
-                               3)
-        fwd_lib_ms = cuda_ms(lambda: sdpa(q, k, v, bias), 10)
-        ms = cuda_ms(lambda: attention_bwd(q, k, v, o, do, bias, lse,
-                                           need_dbias=masked), 10)
-        # two launches a call and no atomics: the same bits on every run
-        once, again = (attention_bwd(q, k, v, o, do, bias, lse,
-                                     need_dbias=masked) for _ in range(2))
-        same = all(torch.equal(a, b) for a, b in zip(once, again)
-                   if a is not None)
-        del once, again
-        plain_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, o, do, bias),
-                           3)
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = sdpa(*leaves, bias)
-        lib_ms = cuda_ms(lambda: torch.autograd.grad(
-            out, leaves, do, retain_graph=True), 10)
-        size = q.element_size()
-        # recomputed scores, dv, dp, dq, dk: five [Tq,Tk,D] products
-        flop = 10 * B * H * Tq * Tk * D
-        # p is recomputed in each of the two passes
-        exps = 2 * B * H * Tq * Tk
-        # q, o, do in and dq out; k, v in and dk, dv out; the f32 lse in;
-        # the bias in and its gradient out where it is masked
-        nbytes = (size * 4 * B * H * D * (Tq + Tk) + 4 * B * H * Tq
-                  + (8 * B * Tk if masked else 0))
-        b = bound(flop, nbytes, "bfloat16")
+        t = _bwd_case_times(g, B, Tq, Tk, H, D, masked)
         emit({"phase": "kernel_time", "kernel": "attention_bwd",
               "case": label, "dtype": "bfloat16", "B": B, "calls": n,
-              "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-              "fwd_lse_ms": fwd_ms, **b, "exp_ms": exp_floor(exps),
-              "bit_identical": same, "card": smi})
-        if not same:
+              **t["bwd"], "card": smi})
+        if not t["bwd"]["bit_identical"]:
             raise AssertionError(f"attention_bwd {label}: two runs differ")
-        # the forward with the lse: q, k, v in, o and the f32 lse out
-        fwd_flop = 4 * B * H * Tq * Tk * D
-        fwd_exps = B * H * Tq * Tk
-        fwd_bytes = (size * 2 * B * H * D * (Tq + Tk) + 4 * B * H * Tq
-                     + (4 * B * Tk if masked else 0))
         emit({"phase": "kernel_time", "kernel": "attention_fwd_lse",
               "case": label, "dtype": "bfloat16", "B": B, "calls": n,
-              "ms": fwd_ms, "plain_ms": fwd_plain_ms,
-              "library_ms": fwd_lib_ms,
-              **bound(fwd_flop, fwd_bytes, "bfloat16"),
-              "exp_ms": exp_floor(fwd_exps), "card": smi})
-        for key, t in (("ms", fwd_ms), ("plain_ms", fwd_plain_ms),
-                       ("library_ms", fwd_lib_ms)):
-            fwd[key] += n * t
-        fwd["flop"] += n * fwd_flop
-        fwd["bytes"] += n * fwd_bytes
-        fwd["exps"] += n * fwd_exps
-        for key, t in (("ms", ms), ("plain_ms", plain_ms),
-                       ("library_ms", lib_ms), ("fwd_lse_ms", fwd_ms)):
-            step[key] += n * t
-        step["flop"] += n * flop
-        step["bytes"] += n * nbytes
-        step["exps"] += n * exps
-        del q, k, v, do, o, lse, leaves, out
-        torch.cuda.empty_cache()
+              **t["fwd"], "card": smi})
+        for acc, key in ((step, "bwd"), (fwd, "fwd")):
+            for k in acc:
+                acc[k] += n * t[key][k]
     b = bound(step.pop("flop"), step.pop("bytes"), "bfloat16")
     fb = bound(fwd.pop("flop"), fwd.pop("bytes"), "bfloat16")
     exp_ms, fwd_exp_ms = exp_floor(step.pop("exps")), exp_floor(fwd.pop("exps"))
@@ -701,6 +671,139 @@ def phase_attention_bwd(smi, train_batch):
              "bound_by": b["bound_by"], "exp_ms": exp_ms, "unit": unit},
             {**fwd, "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
              "exp_ms": fwd_exp_ms, "unit": unit + ", with the lse"})
+
+
+def _bwd_case_times(g, B, Tq, Tk, H, D, masked):
+    """One bf16 attention call at [B, Tq/Tk, H, D], timed by CUDA events:
+    the backward kernel, its plain version and the library's backward (SDPA
+    through autograd), whether two backward runs give the same bits; the
+    forward kernel with the lse, its plain version and SDPA's forward; each
+    with its flop, bytes and exps.  ``fwd_lse_ms`` rides with the
+    backward."""
+    import torch
+    from prompt_tts_tpu_torch.ops.attention import (
+        attention_bwd_plain, flash_attention_plain,
+    )
+    from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
+    from prompt_tts_tpu_torch.ops.cuda.attention_bwd import attention_bwd
+    q, k, v, bias = attn_inputs(g, B, Tq, Tk, H, D, masked, torch.bfloat16)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    o, lse = flash_attention(q, k, v, bias, return_lse=True)
+    fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, bias, return_lse=True),
+                     10)
+    fwd_plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, bias), 3)
+    fwd_lib_ms = cuda_ms(lambda: sdpa(q, k, v, bias), 10)
+    ms = cuda_ms(lambda: attention_bwd(q, k, v, o, do, bias, lse,
+                                       need_dbias=masked), 10)
+    # two launches a call and no atomics: the same bits on every run
+    once, again = (attention_bwd(q, k, v, o, do, bias, lse,
+                                 need_dbias=masked) for _ in range(2))
+    same = all(torch.equal(a, b) for a, b in zip(once, again)
+               if a is not None)
+    del once, again
+    plain_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, o, do, bias), 3)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = sdpa(*leaves, bias)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), 10)
+    size = q.element_size()
+    # recomputed scores, dv, dp, dq, dk: five [Tq,Tk,D] products
+    flop = 10 * B * H * Tq * Tk * D
+    # p is recomputed in each of the two passes
+    exps = 2 * B * H * Tq * Tk
+    # q, o, do in and dq out; k, v in and dk, dv out; the f32 lse in;
+    # the bias in and its gradient out where it is masked
+    nbytes = (size * 4 * B * H * D * (Tq + Tk) + 4 * B * H * Tq
+              + (8 * B * Tk if masked else 0))
+    # the forward with the lse: q, k, v in, o and the f32 lse out
+    fwd_flop = 4 * B * H * Tq * Tk * D
+    fwd_exps = B * H * Tq * Tk
+    fwd_bytes = (size * 2 * B * H * D * (Tq + Tk) + 4 * B * H * Tq
+                 + (4 * B * Tk if masked else 0))
+    del q, k, v, do, o, lse, leaves, out
+    torch.cuda.empty_cache()
+    return {"bwd": {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "fwd_lse_ms": fwd_ms, **bound(flop, nbytes, "bfloat16"),
+                    "exps": exps, "exp_ms": exp_floor(exps),
+                    "bit_identical": same},
+            "fwd": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                    "library_ms": fwd_lib_ms,
+                    **bound(fwd_flop, fwd_bytes, "bfloat16"),
+                    "exps": fwd_exps, "exp_ms": exp_floor(fwd_exps)}}
+
+
+def prompt_train_attn_cases():
+    """(label, Tq, Tk, H, D, calls per train step) of the attention calls
+    the prompt family adds or changes in training: the prompt encoder's
+    self-attention and its pooling, and the UNet's cross-attention over
+    550 text + 32 prompt keys (unmasked: the UNet never masks them)."""
+    Tk = TEXT_LEN + PROMPT_TOKENS
+    cases = [(f"prompt self T={PROMPT_T} D={PROMPT_HEAD_DIM}", PROMPT_T,
+              PROMPT_T, PROMPT_HEADS, PROMPT_HEAD_DIM, PROMPT_BLOCKS),
+             (f"prompt pool T={PROMPT_TOKENS} Tk={PROMPT_T} "
+              f"D={PROMPT_HEAD_DIM}", PROMPT_TOKENS, PROMPT_T, PROMPT_HEADS,
+              PROMPT_HEAD_DIM, 1)]
+    cases += [(f"cross T={T} Tk={Tk} D={D}", T, Tk, 8, D, n)
+              for T, D, n in UNET_ATTN]
+    return cases
+
+
+def phase_prompt_attention_bwd(smi, B):
+    """The attention backward at the prompt family's training shapes
+    (batch ``B``): against its plain version in f32 and bf16, twice for the
+    same bits; then timed in bf16 (kernel, plain, SDPA's backward) with its
+    bound, summed over one train step's calls at the prompt encoder's
+    shapes and, apart, at the cross-attention over 582 keys."""
+    import torch
+    from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
+    from prompt_tts_tpu_torch.ops.cuda.attention_bwd import attention_bwd
+    g = torch.Generator("cuda").manual_seed(5)
+    err_all = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for label, Tq, Tk, H, D, n in prompt_train_attn_cases():
+            q, k, v, bias = attn_inputs(g, B, Tq, Tk, H, D, False, dtype)
+            o, lse = flash_attention(q, k, v, bias, return_lse=True)
+            do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+            got, again = (attention_bwd(q, k, v, o, do, bias, lse)
+                          for _ in range(2))
+            same = all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None)
+            errs, fros, ok = _bwd_errors(got, (q, k, v, o, do, bias))
+            emit({"phase": "kernel", "kernel": "attention_bwd",
+                  "case": "prompt train: " + label, "dtype": dname, "B": B,
+                  "max_abs_err": errs, "fro_err": fros,
+                  "tol": _bwd_tol(dtype), "bit_identical": same,
+                  "ok": ok and same, "card": smi})
+            if not (ok and same):
+                raise AssertionError(f"attention_bwd prompt train {label} "
+                                     f"{dname}: {errs} {fros} same={same}")
+            err_all = max(err_all, *errs.values())
+            del q, k, v, o, lse, do, got, again
+            torch.cuda.empty_cache()
+    sums = {}
+    for label, Tq, Tk, H, D, n in prompt_train_attn_cases():
+        t = _bwd_case_times(g, B, Tq, Tk, H, D, False)["bwd"]
+        emit({"phase": "kernel_time", "kernel": "attention_bwd",
+              "case": "prompt train: " + label, "dtype": "bfloat16",
+              "B": B, "calls": n, **t, "card": smi})
+        if not t["bit_identical"]:
+            raise AssertionError(f"attention_bwd {label}: two runs differ")
+        group = "prompt_encoder" if label.startswith("prompt") else "unet_cross"
+        acc = sums.setdefault(group, {"ms": 0.0, "plain_ms": 0.0,
+                                      "library_ms": 0.0, "flop": 0,
+                                      "bytes": 0, "exps": 0, "calls": 0})
+        for key in ("ms", "plain_ms", "library_ms", "flop", "bytes",
+                    "exps"):
+            acc[key] += n * t[key]
+        acc["calls"] += n
+    for group, acc in sums.items():
+        b = bound(acc.pop("flop"), acc.pop("bytes"), "bfloat16")
+        acc.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                   exp_ms=exp_floor(acc.pop("exps")),
+                   unit=f"one prompt-family train step's {acc['calls']} "
+                        f"calls, bf16, B={B}")
+    return {"max_abs_err": err_all, **sums}
 
 
 def _lstm_inputs(T, B, g, H=512):
@@ -1819,43 +1922,42 @@ def phase_encode_slice(smi, tmp):
     return launches, rvq, out_file
 
 
-def phase_train_small(smi):
-    """One f32 train step of the full-width model at batch 1, dropout off:
-    card (kernels) against CPU (plain versions)."""
+def _train_step_card_vs_cpu(model_cls, cfg, batch, inputs,
+                            cond_dropout_prob=0.0):
+    """One f32 train step of ``model_cls(cfg)`` (seeded weights and
+    biases, dropout off) on the CPU (plain versions) and on the card
+    (kernels), same batch
+    and loss inputs (noise, timesteps, and the condition drop where
+    ``cond_dropout_prob`` > 0): the step's results by device, the worst
+    gradient error over its tolerance, and the checks."""
     import numpy as np
     import torch
-    from prompt_tts_tpu_torch.config import ModelConfig, TrainConfig
+    from prompt_tts_tpu_torch.config import TrainConfig
     from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
-    from prompt_tts_tpu_torch.frontend.tokenizer import Tokenizer
-    from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
     from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
-    from prompt_tts_tpu_torch.ops.cuda.attention_bwd import (
-        LAUNCHES_PER_CALL, attention_bwd,
-    )
+    from prompt_tts_tpu_torch.ops.cuda.attention_bwd import attention_bwd
     from prompt_tts_tpu_torch.pipeline import random_init_
     from prompt_tts_tpu_torch.train.state import TrainState
     from prompt_tts_tpu_torch.train.step import make_loss_fn
-    cfg = dataclasses.replace(ModelConfig(), text_encoder_dropout=0.0)
-    assert cfg.dropout == 0.0
-    tcfg = TrainConfig(batch_size=1, learning_rate=1e-4, lr_warmup_steps=0)
-    rng = np.random.default_rng(3)
-    ids, mask = Tokenizer(max_len=cfg.cmu_seq_len).encode_batch(TEXTS[1:2])
-    codes = rng.integers(0, 1024, (1, cfg.sample_size, 8))
-    batch = {"codes": torch.from_numpy(
-                 (codes * (2 / 1023) - 1).astype(np.float32)),
-             "text_ids": torch.from_numpy(ids),
-             "text_mask": torch.from_numpy(mask)}
-    inputs = {"noise": torch.from_numpy(rng.standard_normal(
-                  (1, cfg.sample_size, 8)).astype(np.float32)),
-              "timesteps": torch.tensor([421])}
-    weights = TTSSingleSpeaker(cfg)
+    assert cfg.dropout == 0.0 and cfg.text_encoder_dropout == 0.0
+    tcfg = TrainConfig(batch_size=len(batch["codes"]), learning_rate=1e-4,
+                       lr_warmup_steps=0)
+    weights = model_cls(cfg)
     random_init_(weights, torch.Generator().manual_seed(0))
+    # biases N(0, 0.1), as the CPU parity tests fill them: with zero biases
+    # the null prompt's all-zero rows reach LayerNorm as a zero vector
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for n, p in weights.named_parameters():
+            if n.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
     res, grads = {}, {}
     for dev in ("cpu", "cuda"):
-        model = TTSSingleSpeaker(cfg, device=dev)
+        model = model_cls(cfg, device=dev)
         model.load_state_dict(weights.state_dict())
         state = TrainState(model, tcfg, num_training_steps=10)
-        loss_fn = make_loss_fn(model, linear_schedule(device=dev))
+        loss_fn = make_loss_fn(model, linear_schedule(device=dev),
+                               cond_dropout_prob)
         model.train()
         flash_attention.launches = attention_bwd.launches = 0
         t0 = time.perf_counter()
@@ -1874,12 +1976,19 @@ def phase_train_small(smi):
     gc.collect()
     torch.cuda.empty_cache()
     gn = res["cpu"]["grad_norm"]
+    # rounding noise scales with the gradients of the sub-model a tensor
+    # sits in (text encoder, prompt encoder, UNet)
+    group_sq = {}
+    for n, ref in grads["cpu"].items():
+        top = n.split(".")[0]
+        group_sq[top] = group_sq.get(top, 0.0) + ref.norm().item() ** 2
     worst, worst_name, zero = 0.0, None, 0
     for n, ref in grads["cpu"].items():
         err = (grads["cuda"][n] - ref).norm().item()
-        if ref.norm().item() <= ZERO_GRAD * gn:
+        floor = ZERO_GRAD * group_sq[n.split(".")[0]] ** 0.5
+        if ref.norm().item() <= floor:
             zero += 1
-            rel = err / (ZERO_GRAD * gn)     # must stay <= 1
+            rel = err / floor     # must stay <= 1
         else:
             rel = err / ref.norm().item() / TRAIN_GRAD_RTOL
         if rel > worst:
@@ -1892,18 +2001,81 @@ def phase_train_small(smi):
         "grads": worst <= 1.0,
         "finite": all(np.isfinite(res["cuda"][k]) for k in ("loss",
                                                            "grad_norm")),
-        "launches": (res["cuda"]["attention_fwd"] == ATTN_CALLS
-                     and res["cuda"]["attention_bwd"]
-                     == LAUNCHES_PER_CALL * ATTN_CALLS),
     }
+    return {"cuda": res["cuda"], "cpu": res["cpu"],
+            "grad_norm_by_part": {k: v ** 0.5 for k, v in group_sq.items()},
+            "loss_tol": TRAIN_LOSS_TOL, "grad_rtol": TRAIN_GRAD_RTOL,
+            "worst_grad_err_over_tol": worst, "worst_grad": worst_name,
+            "zero_grad_tensors": zero}, checks
+
+
+def phase_train_small(smi):
+    """One f32 train step of the full-width model at batch 1, dropout off:
+    card (kernels) against CPU (plain versions)."""
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.config import ModelConfig
+    from prompt_tts_tpu_torch.frontend.tokenizer import Tokenizer
+    from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
+    from prompt_tts_tpu_torch.ops.cuda.attention_bwd import LAUNCHES_PER_CALL
+    cfg = dataclasses.replace(ModelConfig(), text_encoder_dropout=0.0)
+    rng = np.random.default_rng(3)
+    ids, mask = Tokenizer(max_len=cfg.cmu_seq_len).encode_batch(TEXTS[1:2])
+    codes = rng.integers(0, 1024, (1, cfg.sample_size, 8))
+    batch = {"codes": torch.from_numpy(
+                 (codes * (2 / 1023) - 1).astype(np.float32)),
+             "text_ids": torch.from_numpy(ids),
+             "text_mask": torch.from_numpy(mask)}
+    inputs = {"noise": torch.from_numpy(rng.standard_normal(
+                  (1, cfg.sample_size, 8)).astype(np.float32)),
+              "timesteps": torch.tensor([421])}
+    out, checks = _train_step_card_vs_cpu(TTSSingleSpeaker, cfg, batch,
+                                          inputs)
+    checks["launches"] = (out["cuda"]["attention_fwd"] == ATTN_CALLS
+                          and out["cuda"]["attention_bwd"]
+                          == LAUNCHES_PER_CALL * ATTN_CALLS)
     emit({"phase": "train_small", "what": "ModelConfig() B=1 f32 dropout "
-          "off, one train step, cuda vs cpu", "cuda": res["cuda"],
-          "cpu": res["cpu"], "loss_tol": TRAIN_LOSS_TOL,
-          "grad_rtol": TRAIN_GRAD_RTOL,
-          "worst_grad_err_over_tol": worst, "worst_grad": worst_name,
-          "zero_grad_tensors": zero, "checks": checks, "card": smi})
+          "off, one train step, cuda vs cpu", **out, "checks": checks,
+          "card": smi})
     if not all(checks.values()):
         raise AssertionError(f"train_small checks failed: {checks}")
+
+
+def phase_prompt_train_small(smi):
+    """One f32 train step of the full-width prompt model at batch 2,
+    dropout off, the condition drop nulling row 0's text and prompt and
+    keeping row 1's: card (kernels) against CPU (plain versions), same
+    weights, batch, noise, timesteps and drop.  Every gradient is compared,
+    the prompt encoder's too (its pooling's queries are one parameter
+    expanded over the batch)."""
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.frontend.tokenizer import Tokenizer
+    from prompt_tts_tpu_torch.models.prompt_tts import TTSPromptSpeaker
+    from prompt_tts_tpu_torch.ops.cuda.attention_bwd import LAUNCHES_PER_CALL
+    cfg = dataclasses.replace(prompt_config(), text_encoder_dropout=0.0)
+    rng = np.random.default_rng(4)
+    ids, mask = Tokenizer(max_len=cfg.cmu_seq_len).encode_batch(TEXTS[1:3])
+    codes = rng.integers(0, 1024, (2, cfg.sample_size, 8))
+    lat = torch.from_numpy((codes * (2 / 1023) - 1).astype(np.float32))
+    batch = {"codes": lat, "text_ids": torch.from_numpy(ids),
+             "text_mask": torch.from_numpy(mask),
+             "prompt": lat[:, 300:300 + cfg.prompt_frames].contiguous()}
+    inputs = {"noise": torch.from_numpy(rng.standard_normal(
+                  (2, cfg.sample_size, 8)).astype(np.float32)),
+              "timesteps": torch.tensor([421, 77]),
+              "drop": torch.tensor([[True], [False]])}
+    out, checks = _train_step_card_vs_cpu(TTSPromptSpeaker, cfg, batch,
+                                          inputs, cond_dropout_prob=0.5)
+    checks["launches"] = (out["cuda"]["attention_fwd"] == PROMPT_ATTN_CALLS
+                          and out["cuda"]["attention_bwd"]
+                          == LAUNCHES_PER_CALL * PROMPT_ATTN_CALLS)
+    emit({"phase": "prompt_train_small", "what": "ModelConfig(prompt_"
+          "conditioning=True) B=2 f32 dropout off, row 0's text and prompt "
+          "dropped, one train step, cuda vs cpu", **out, "checks": checks,
+          "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"prompt_train_small checks failed: {checks}")
 
 
 def _logged(log_dir, tag):
@@ -1958,113 +2130,341 @@ def profile_step(step):
             "by_class_ms": by_class, "top": top[:12]}
 
 
-def phase_train_slice(smi, tar):
-    """The train CLI at full width on the code tar ``tar``; returns the
-    launches of its runs and the batch it used."""
+def phase_train_slice(smi, tar, tmp):
+    """The train CLI at full width on the code tar ``tar``, its checkpoints
+    and logs under ``tmp``; returns the launches of its runs, the batch it
+    used and its checkpoint directory."""
     import numpy as np
     import torch
     from prompt_tts_tpu_torch.cli import train as cli
     from prompt_tts_tpu_torch.ops.cuda.attention_bwd import LAUNCHES_PER_CALL
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt, logs = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
-        trainer = None
-        for batch in TRAIN_BATCHES:
-            argv = ["--data_file", tar, "--log_dir", logs, "--ckpt_dir", ckpt,
-                    "--bf16", "--batch_size", str(batch), "--log_every", "1",
-                    "--device", "cuda"]
-            zero_counts()
-            try:
-                t0 = time.perf_counter()
-                trainer = cli.main(argv + ["--epochs", "2"])
-                torch.cuda.synchronize()
-                first_s = time.perf_counter() - t0
-                break
-            except torch.cuda.OutOfMemoryError as e:
-                emit({"phase": "train_slice_batch", "batch": batch,
-                      "fits": False, "error": str(e)[:200], "card": smi})
-                trainer = None
-                gc.collect()
-                torch.cuda.empty_cache()
-                for d in (ckpt, logs):
-                    shutil.rmtree(d, ignore_errors=True)
-        if trainer is None:
-            raise AssertionError("the train slice fits at no batch >= 8")
-        run1 = counts()
-        steps1 = trainer.global_step
-        del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
-
+    ckpt, logs = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
+    trainer = None
+    for batch in TRAIN_BATCHES:
+        argv = ["--data_file", tar, "--log_dir", logs, "--ckpt_dir", ckpt,
+                "--bf16", "--batch_size", str(batch), "--log_every", "1",
+                "--device", "cuda"]
         zero_counts()
+        try:
+            t0 = time.perf_counter()
+            trainer = cli.main(argv + ["--epochs", "2"])
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            emit({"phase": "train_slice_batch", "batch": batch,
+                  "fits": False, "error": str(e)[:200], "card": smi})
+            trainer = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            for d in (ckpt, logs):
+                shutil.rmtree(d, ignore_errors=True)
+    if trainer is None:
+        raise AssertionError("the train slice fits at no batch >= 8")
+    run1 = counts()
+    steps1 = trainer.global_step
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv + ["--epochs", "3", "--resume"])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    run2 = counts()
+    losses = _logged(logs, "Loss/train")
+    norms = _logged(logs, "grad_norm")
+    saved = trainer.ckpt.all_steps()
+    per_epoch = ENCODE_UTTERANCES // batch
+    # training needs gradients: the resnet blocks take the module's
+    # autograd path, never the inference kernel
+    want1 = want_counts(attention_fwd=ATTN_CALLS * 2 * per_epoch,
+                        attention_bwd=LAUNCHES_PER_CALL * ATTN_CALLS * 2
+                        * per_epoch)
+    want2 = {k: v // 2 for k, v in want1.items()}
+    params = list(trainer.model.parameters())
+    checks = {
+        "steps": steps1 == 2 * per_epoch
+        and trainer.global_step == 3 * per_epoch,
+        "resumed_at": min(s for s in losses if s > steps1) == steps1 + 1,
+        "logged": sorted(losses) == list(range(1, 3 * per_epoch + 1)),
+        "finite": all(np.isfinite(v) for v in list(losses.values())
+                      + list(norms.values())),
+        "checkpoints": saved[-1] == 3 * per_epoch,
+        "launches": run1 == want1 and run2 == want2,
+        "f32_master": all(p.dtype == torch.float32 for p in params) and
+        all(trainer.state.optimizer.state[p]["exp_avg"].dtype
+            == torch.float32 for p in params),
+    }
+    emit({"phase": "train_slice", "what": f"cli.train ModelConfig() "
+          f"--bf16 --batch_size {batch}, the encode slice's "
+          f"{ENCODE_UTTERANCES} utterances x 900 frames: 2 epochs, then "
+          f"--resume to 3",
+          "checks": checks, "launches_first": run1, "want_first": want1,
+          "launches_resume": run2, "want_resume": want2,
+          "loss": losses, "grad_norm": norms, "checkpoints": saved,
+          "first_run_s": first_s, "resume_run_s": resume_s,
+          "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"train slice checks failed: {checks}")
+
+    # warm steps on the same trainer: median wall of a synchronised step
+    dev_batch = trainer._to_device(next(trainer.dataset.batches(batch)))
+
+    def step():
+        trainer._step_fn(dev_batch, trainer.generator)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
         t0 = time.perf_counter()
-        trainer = cli.main(argv + ["--epochs", "3", "--resume"])
-        torch.cuda.synchronize()
-        resume_s = time.perf_counter() - t0
-        run2 = counts()
-        losses = _logged(logs, "Loss/train")
-        norms = _logged(logs, "grad_norm")
-        saved = trainer.ckpt.all_steps()
-        per_epoch = ENCODE_UTTERANCES // batch
-        # training needs gradients: the resnet blocks take the module's
-        # autograd path, never the inference kernel
-        want1 = want_counts(attention_fwd=ATTN_CALLS * 2 * per_epoch,
-                            attention_bwd=LAUNCHES_PER_CALL * ATTN_CALLS * 2
-                            * per_epoch)
-        want2 = {k: v // 2 for k, v in want1.items()}
-        params = list(trainer.model.parameters())
-        checks = {
-            "steps": steps1 == 2 * per_epoch
-            and trainer.global_step == 3 * per_epoch,
-            "resumed_at": min(s for s in losses if s > steps1) == steps1 + 1,
-            "logged": sorted(losses) == list(range(1, 3 * per_epoch + 1)),
-            "finite": all(np.isfinite(v) for v in list(losses.values())
-                          + list(norms.values())),
-            "checkpoints": saved[-1] == 3 * per_epoch,
-            "launches": run1 == want1 and run2 == want2,
-            "f32_master": all(p.dtype == torch.float32 for p in params) and
-            all(trainer.state.optimizer.state[p]["exp_avg"].dtype
-                == torch.float32 for p in params),
-        }
-        emit({"phase": "train_slice", "what": f"cli.train ModelConfig() "
-              f"--bf16 --batch_size {batch}, the encode slice's "
-              f"{ENCODE_UTTERANCES} utterances x 900 frames: 2 epochs, then "
-              f"--resume to 3",
-              "checks": checks, "launches_first": run1, "want_first": want1,
-              "launches_resume": run2, "want_resume": want2,
-              "loss": losses, "grad_norm": norms, "checkpoints": saved,
-              "first_run_s": first_s, "resume_run_s": resume_s,
-              "card": smi})
-        if not all(checks.values()):
-            raise AssertionError(f"train slice checks failed: {checks}")
-
-        # warm steps on the same trainer: median wall of a synchronised step
-        dev_batch = trainer._to_device(next(trainer.dataset.batches(batch)))
-
-        def step():
-            trainer._step_fn(dev_batch, trainer.generator)
-
         step()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        emit({"phase": "train_warm", "what": f"train step ModelConfig() bf16 "
-              f"B={batch}", "step_s": times,
-              "median_step_s": statistics.median(times),
-              "examples_per_s": batch / statistics.median(times),
-              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-              "card": smi})
-        emit({"phase": "train_profile", "what": f"one train step B={batch}",
-              **profile_step(step), "card": smi})
-        del trainer
+        times.append(time.perf_counter() - t0)
+    emit({"phase": "train_warm", "what": f"train step ModelConfig() bf16 "
+          f"B={batch}", "step_s": times,
+          "median_step_s": statistics.median(times),
+          "examples_per_s": batch / statistics.median(times),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "card": smi})
+    emit({"phase": "train_profile", "what": f"one train step B={batch}",
+          **profile_step(step), "card": smi})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: run1[k] + run2[k] for k in run1}, batch, ckpt
+
+
+def phase_prompt_train_slice(smi, tar, tmp, batch):
+    """The train CLI on the prompt family at full width: a config this
+    script writes (``prompt_config()`` with the condition drop), ``--bf16
+    --ema_decay``, batch ``batch`` on the code tar ``tar``, one epoch with a
+    checkpoint under ``tmp``.  Checks the losses, the f32 parameters and
+    moments, the checkpoint's EMA, the launches, and the backward kernel's
+    calls at the prompt encoder's shapes (a wrapper around the backward's
+    wrapper records each call's shape); then times warm steps and profiles
+    one.  Returns the launches, the checkpoint directory and the config
+    file."""
+    import collections
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.cli import train as cli
+    from prompt_tts_tpu_torch.config import Config, TrainConfig
+    from prompt_tts_tpu_torch.ops.attention import AttentionFunction
+    from prompt_tts_tpu_torch.ops.cuda.attention_bwd import LAUNCHES_PER_CALL
+    from prompt_tts_tpu_torch.train.checkpoint import CheckpointManager
+    cfg_path = os.path.join(tmp, "prompt_train.json")
+    Config(model=prompt_config(),
+           train=TrainConfig(cond_dropout_prob=PROMPT_COND_DROP)
+           ).to_json(cfg_path)
+    ckpt, logs = os.path.join(tmp, "prompt_ckpt"), os.path.join(tmp,
+                                                                "prompt_log")
+    argv = ["--data_file", tar, "--config_file", cfg_path, "--log_dir", logs,
+            "--ckpt_dir", ckpt, "--bf16", "--ema_decay", str(PROMPT_EMA),
+            "--batch_size", str(batch), "--epochs", "1", "--log_every", "1",
+            "--device", "cuda"]
+    fn = AttentionFunction.backward
+    shapes = collections.Counter()
+
+    def recording(ctx, do):
+        q, k = ctx.saved_tensors[:2]
+        shapes[(tuple(q.shape), k.shape[1], str(q.dtype).split(".")[-1])] \
+            += 1
+        return fn(ctx, do)
+
+    zero_counts()
+    AttentionFunction.backward = staticmethod(recording)
+    try:
+        t0 = time.perf_counter()
+        trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        AttentionFunction.backward = staticmethod(fn)
+    launches = counts()
+    losses, norms = _logged(logs, "Loss/train"), _logged(logs, "grad_norm")
+    steps = ENCODE_UTTERANCES // batch
+    want = want_counts(
+        attention_fwd=PROMPT_ATTN_CALLS * steps,
+        attention_bwd=LAUNCHES_PER_CALL * PROMPT_ATTN_CALLS * steps)
+    H, D = PROMPT_HEADS, PROMPT_HEAD_DIM
+    want_shapes = {  # (q shape, Tk, dtype): calls in the run
+        ((batch, PROMPT_T, H, D), PROMPT_T, "bfloat16"):
+            PROMPT_BLOCKS * steps,
+        ((batch, PROMPT_TOKENS, H, D), PROMPT_T, "bfloat16"): steps}
+    for T, Dc, n in UNET_ATTN:
+        want_shapes[((batch, T, 8, Dc), TEXT_LEN + PROMPT_TOKENS,
+                     "bfloat16")] = n * steps
+    params = list(trainer.model.parameters())
+    ema, ema_step = CheckpointManager(ckpt).read_model_state(ema=True)
+    checks = {
+        "steps": trainer.global_step == steps,
+        "logged": sorted(losses) == list(range(1, steps + 1)),
+        "finite": all(np.isfinite(v) for v in list(losses.values())
+                      + list(norms.values())),
+        "checkpoint_ema": ema_step == steps
+        and set(ema) == set(trainer.model.state_dict())
+        and all(t.dtype == torch.float32 and t.device.type == "cpu"
+                for t in ema.values()),
+        "launches": launches == want,
+        "prompt_shapes": all(shapes[k] == n for k, n in want_shapes.items()),
+        "f32_master": all(p.dtype == torch.float32 for p in params) and
+        all(trainer.state.optimizer.state[p]["exp_avg"].dtype
+            == torch.float32 for p in params),
+    }
+    emit({"phase": "prompt_train_slice", "what": f"cli.train ModelConfig("
+          f"prompt_conditioning=True) --bf16 --ema_decay {PROMPT_EMA} "
+          f"--batch_size {batch}, cond_dropout_prob {PROMPT_COND_DROP}, the "
+          f"encode slice's {ENCODE_UTTERANCES} utterances x 900 frames with "
+          f"225-frame prompt crops: 1 epoch", "checks": checks,
+          "launches": launches, "want_launches": want,
+          "attention_bwd_calls_by_shape": {str(k): v for k, v in
+                                           sorted(shapes.items())},
+          "loss": losses, "grad_norm": norms, "run_s": run_s, "card": smi})
+    del ema
+    if not all(checks.values()):
+        raise AssertionError(f"prompt train slice checks failed: {checks}")
+
+    dev_batch = trainer._to_device(next(trainer.dataset.batches(batch)))
+
+    def step():
+        trainer._step_fn(dev_batch, trainer.generator)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    emit({"phase": "prompt_train_warm", "what": "train step ModelConfig("
+          f"prompt_conditioning=True) bf16 B={batch}", "step_s": times,
+          "median_step_s": statistics.median(times),
+          "examples_per_s": batch / statistics.median(times),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "card": smi})
+    emit({"phase": "prompt_train_profile", "what": f"one prompt-family "
+          f"train step B={batch}", **profile_step(step), "card": smi})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, ckpt, cfg_path
+
+
+def phase_ckpt_synth(smi, tmp, prompt_ckpt, prompt_cfg, single_ckpt):
+    """The synthesis CLI from the port's own checkpoints, with a codec from
+    ``cli.convert_codec --random``: the prompt train slice's EMA (a 3 s
+    22.05 kHz voice prompt, DPM-25, CFG 3) and the single-speaker train
+    slice's parameters (DDIM-50), 4 requests each, bf16.  Each must launch
+    every inference kernel of its path and give the codes and wavs of an
+    in-process ``Synthesizer`` on the same restored state, bit for bit.
+    Returns the launches of the two CLI runs."""
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.cli import convert_codec
+    from prompt_tts_tpu_torch.cli import synthesize as cli
+    from prompt_tts_tpu_torch.cli._common import restore_model_state
+    from prompt_tts_tpu_torch.config import Config
+    from prompt_tts_tpu_torch.pipeline import Synthesizer
+    from prompt_tts_tpu_torch.utils.resample import resample
+    from prompt_tts_tpu_torch.utils.wav import read_wav, write_wav
+    codec_path = os.path.join(tmp, "codec.pt")
+    convert_codec.main(["--random", "--out", codec_path, "--seed", "5"])
+    wav_path = os.path.join(tmp, "ckpt_voice.wav")
+    write_wav(wav_path, tone(np.random.default_rng(17),
+                             int(PROMPT_S * ENCODE_SR)), ENCODE_SR)
+    audio, sr = read_wav(wav_path)
+    prompt_wav = np.tile(resample(audio, sr, SAMPLE_RATE)[None, :, 0],
+                         (N_REQUESTS, 1))
+    prompt_cfg_obj = Config.from_json(prompt_cfg)
+    # the two families share the UNet: the same resnet blocks a forward
+    n_res = len(resnet_shapes(prompt_cfg_obj.model))
+    runs = {
+        "prompt": dict(
+            ckpt=prompt_ckpt, ema=True, config=prompt_cfg_obj,
+            sampler="dpm", steps=PROMPT_STEPS, scale=GUIDANCE,
+            prompt_wav=prompt_wav,
+            argv=["--config_file", prompt_cfg, "--ema", "--prompt_wav",
+                  wav_path, "--sampler", "dpm", "--guidance_scale",
+                  str(GUIDANCE)],
+            want=want_counts(
+                attention_fwd=2 * (TEXT_LAYERS + PROMPT_BLOCKS + 1)
+                + 32 * PROMPT_STEPS, resnet=n_res * PROMPT_STEPS, lstm=4,
+                rvq_encode=1)),
+        "single": dict(
+            ckpt=single_ckpt, ema=False, config=Config(), sampler="ddim",
+            steps=STEPS, scale=1.0, prompt_wav=None, argv=[],
+            want=want_counts(attention_fwd=TEXT_LAYERS + 32 * STEPS,
+                             resnet=n_res * STEPS, lstm=2)),
+    }
+    all_launches = {}
+    for name, r in runs.items():
+        argv = sum((["--text", t] for t in TEXTS), []) + [
+            "--out", os.path.join(tmp, f"ckpt_{name}.wav"), "--ckpt_dir",
+            r["ckpt"], "--codec_params", codec_path, "--steps",
+            str(r["steps"]), "--device", "cuda", "--dtype", "bf16",
+            "--seed", "0"] + r["argv"]
         gc.collect()
         torch.cuda.empty_cache()
-    return {k: run1[k] + run2[k] for k in run1}, batch
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        paths, wavs, codes = cli.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = counts()
+        cli_peak = torch.cuda.max_memory_allocated() / 2**30
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, step = restore_model_state(r["ckpt"], r["config"],
+                                          ema=r["ema"])
+        on_cpu = all(t.device.type == "cpu" and t.dtype == torch.float32
+                     for t in state.values())
+        synth = Synthesizer(
+            config=r["config"], device="cuda", dtype=torch.bfloat16,
+            num_inference_steps=r["steps"], sampler=r["sampler"],
+            guidance_scale=r["scale"], model_state=state,
+            codec_state=torch.load(codec_path, map_location="cpu",
+                                   weights_only=True))
+        del state
+        wavs_p, codes_p = synth.synthesize(TEXTS, seed=0, return_codes=True,
+                                           prompt_wav=r["prompt_wav"])
+        n_samples = int(AUDIO_S * SAMPLE_RATE)
+        checks = {
+            "codes_equal_in_process": bool(np.array_equal(codes, codes_p)),
+            "wavs_equal_in_process": bool(np.array_equal(wavs, wavs_p)),
+            "state_read_on_cpu_f32": on_cpu,
+            "wav_shape": wavs.shape == (N_REQUESTS, n_samples),
+            "wav_finite": bool(np.isfinite(wavs).all()),
+            "codes_range": bool(codes.min() >= 0 and codes.max() <= 1023),
+            "files": len(paths) == N_REQUESTS,
+            "launches": launches == r["want"],
+        }
+        emit({"phase": "ckpt_synth", "what": f"cli.synthesize --ckpt_dir "
+              f"({name} train slice, step {step}"
+              f"{', EMA' if r['ema'] else ''}) --codec_params "
+              f"(convert_codec --random), {N_REQUESTS} requests, "
+              f"{r['sampler']}-{r['steps']} CFG {r['scale']} bf16",
+              "checks": checks, "launches": launches,
+              "want_launches": r["want"], "cli_wall_s": cli_s,
+              "cli_peak_mem_gib": cli_peak,
+              "code_min": int(codes.min()), "code_max": int(codes.max()),
+              "card": smi})
+        if not all(checks.values()):
+            raise AssertionError(f"ckpt_synth {name} checks failed: "
+                                 f"{checks}")
+        all_launches[name] = launches
+        del synth
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {k: all_launches["prompt"][k] + all_launches["single"][k]
+            for k in KERNELS}
 
 
 def main():
@@ -2099,17 +2499,26 @@ def main():
         phase_prompt_small(smi)
         phase_encode_small(smi)
         phase_train_small(smi)
+        phase_prompt_train_small(smi)
     with tempfile.TemporaryDirectory() as tmp:
         encode, rvq, codes_tar = phase_encode_slice(smi, tmp)
-        train, batch = phase_train_slice(smi, codes_tar)
+        train, batch, ckpt = phase_train_slice(smi, codes_tar, tmp)
+        prompt_train, prompt_ckpt, prompt_cfg = phase_prompt_train_slice(
+            smi, codes_tar, tmp, batch)
+        ckpt_synth = phase_ckpt_synth(smi, tmp, prompt_ckpt, prompt_cfg,
+                                      ckpt)
     rvq["differ"]["prompt_latents"] = prompt_rvq_res["differ"]
     rvq["max_abs_err"] = max(rvq["max_abs_err"],
                              prompt_rvq_res["max_score_gap"])
     with full_f32():
         bwd, fwd["train_shapes"] = phase_attention_bwd(smi, batch)
+        bwd["prompt_train_shapes"] = phase_prompt_attention_bwd(smi, batch)
+    bwd["max_abs_err"] = max(bwd["max_abs_err"],
+                             bwd["prompt_train_shapes"].pop("max_abs_err"))
     paths = {k: {"synthesize": synth[k], "prompt_synthesize": prompt[k],
                  "codec_other_lstm_schedule": other[k], "train": train[k],
-                 "encode": encode[k]} for k in KERNELS}
+                 "encode": encode[k], "prompt_train": prompt_train[k],
+                 "ckpt_synthesize": ckpt_synth[k]} for k in KERNELS}
     launches = {k: sum(p.values()) for k, p in paths.items()}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the paths never ran: {launches}")

@@ -1,0 +1,46 @@
+"""Shared CLI helpers: the checkpoint restore of the inference entry points.
+
+Port of ``prompt_tts_tpu/cli/_common.py`` for the port's checkpoints
+(``train/checkpoint.py``: ``<ckpt_dir>/step_<N>/state.pt``).  It reads the
+model's weights or their EMA, and fails before any model state is loaded
+when the requested item cannot exist.
+"""
+
+import logging
+import os
+from typing import Dict, Tuple
+
+import torch
+
+log = logging.getLogger(__name__)
+
+
+def restore_model_state(ckpt_dir: str, cfg, ema: bool = False
+                        ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """The model's state dict (or with ``ema=True`` its EMA) from the latest
+    checkpoint in ``ckpt_dir``, as CPU tensors, and its step.
+
+    Raises ``SystemExit`` with a user-facing message when the directory
+    holds no checkpoint, or when ``ema`` is asked of a checkpoint trained
+    without ``--ema_decay``.  ``cfg`` is the config the caller builds the
+    model from: one that does not fit the checkpoint fails in the caller's
+    strict load, which names the keys.
+    """
+    from prompt_tts_tpu_torch.train.checkpoint import CheckpointManager
+
+    if not os.path.isdir(ckpt_dir):
+        raise SystemExit(f"--ckpt_dir {ckpt_dir}: no such directory")
+    mgr = CheckpointManager(ckpt_dir)
+    step = mgr.latest_step()
+    if step is None:
+        raise SystemExit(f"--ckpt_dir {ckpt_dir}: no checkpoint")
+    try:
+        state, step = mgr.read_model_state(step, ema=ema)
+    except LookupError:
+        raise SystemExit(
+            f"--ema: checkpoint {ckpt_dir} (step {step}) has no "
+            "ema_params (train with --ema_decay to produce one)") from None
+    log.info("restored checkpoint at step %d%s (%s family)", step,
+             " (EMA params)" if ema else "",
+             "prompt" if cfg.model.prompt_conditioning else "single-speaker")
+    return state, step

@@ -3,14 +3,16 @@
 The port of ``prompt_tts_tpu/cli/train.py``: the reference's flags
 (--data_file/--log_dir/--config_file/--ckpt_dir/--batch_size/
 --max_seq_length) plus --epochs, --resume, --ema_decay, --bf16,
---eval_every, --log_every, --smoke (the tiny config on synthetic data) and
---device (``cuda`` unless the caller asks for ``cpu``).  The weights start
-from ``train.seed``.  Not ported yet: --tp, --sp, --multihost,
---per_process_data, --remat, --init_from_ref, --streaming,
---profile_steps.
+--eval_every, --log_every, --smoke (the tiny config, or --config_file's,
+on synthetic data), --init_from_ref (a warm start from a reference-repo
+``ckpt_N.pt``) and --device (``cuda`` unless the caller asks for ``cpu``).
+Both model families train: a config with ``prompt_conditioning`` gets
+prompt crops of ``prompt_frames`` in every batch.  Without a warm start the
+weights start from ``train.seed``.  Not ported yet: --tp, --sp,
+--multihost, --per_process_data, --remat, --streaming, --profile_steps.
 
   python -m prompt_tts_tpu_torch.cli.train --data_file codes.tar \\
-      --bf16 --ckpt_dir ckpt
+      --bf16 --ckpt_dir ckpt --ema_decay 0.999
   python -m prompt_tts_tpu_torch.cli.train --smoke --device cpu
 """
 
@@ -35,6 +37,10 @@ def parse_args(argv=None):
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--resume", action="store_true",
                    help="Restore the latest checkpoint before training.")
+    p.add_argument("--init_from_ref", type=str, default=None,
+                   help="Warm-start from a reference torch checkpoint "
+                        "(ckpt_N.pt from the original repo's train.py), "
+                        "converted on the fly; the config must match it.")
     p.add_argument("--ema_decay", type=float, default=None,
                    help="Keep an exponential moving average of the params "
                         "at this decay (e.g. 0.9999), checkpointed.")
@@ -56,6 +62,9 @@ def main(argv=None):
     """Train; returns the Trainer (its ``global_step``, metrics and
     state)."""
     args = parse_args(argv)
+    if args.init_from_ref and args.resume:
+        raise SystemExit("--init_from_ref and --resume are mutually "
+                         "exclusive (resume restores params itself)")
     logging.basicConfig(
         format="%(asctime)s - %(levelname)s: %(message)s",
         level=logging.INFO, datefmt="%I:%M:%S",
@@ -87,21 +96,33 @@ def main(argv=None):
         train = dataclasses.replace(train, ema_decay=args.ema_decay)
     config = dataclasses.replace(config, train=train)
 
+    # the prompt family trains on a voice-prompt crop in every batch
+    pf = (config.model.prompt_frames if config.model.prompt_conditioning
+          else None)
     if args.smoke:
         dataset = SyntheticDataset(
             n=16, frames=config.model.sample_size,
-            max_seq_length=config.model.cmu_seq_len)
+            max_seq_length=config.model.cmu_seq_len, prompt_frames=pf)
     else:
         if not args.data_file:
             raise SystemExit("--data_file is required (or use --smoke)")
         dataset = CodeDataset(args.data_file,
-                              max_seq_length=args.max_seq_length)
+                              max_seq_length=args.max_seq_length,
+                              prompt_frames=pf)
+
+    init_state = None
+    if args.init_from_ref:
+        from prompt_tts_tpu_torch.models.convert import load_reference_state
+        init_state = load_reference_state(args.init_from_ref)
+        logging.info("warm-starting from converted reference checkpoint %s",
+                     args.init_from_ref)
 
     trainer = Trainer(
         config, dataset, log_dir=args.log_dir, ckpt_dir=args.ckpt_dir,
         device=args.device,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        eval_every=args.eval_every, log_every=args.log_every)
+        eval_every=args.eval_every, log_every=args.log_every,
+        init_state=init_state)
     if args.resume:
         trainer.restore_latest()
     loss = trainer.train(epochs=args.epochs)

@@ -21,7 +21,8 @@ top-level ``"params"`` collection.  A leaf no rule consumes raises here;
 a missing or mis-shaped one raises in ``load_state_dict(strict=True)``.
 
 ``opt_state_from_jax`` carries an optax train state's AdamW moments over
-by the same rules, so a JAX run resumes in the port.
+by the same rules, so a JAX run resumes in the port; ``model_state_to_jax``
+goes the other way, so the JAX package can run weights the port trained.
 """
 
 import re
@@ -30,6 +31,7 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 _AS_IS = re.compile(r"l\d+_(w_ih|w_hh|b)|codebooks|queries")
 
@@ -70,6 +72,51 @@ def model_state_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     """``TTSSingleSpeaker`` or ``TTSPromptSpeaker`` params (JAX) -> the
     port's state_dict of the same class."""
     return _convert(tree)
+
+
+def model_state_to_jax(state: Mapping[str, torch.Tensor],
+                       config) -> dict:
+    """The port's ``TTSSingleSpeaker`` or ``TTSPromptSpeaker`` state dict
+    (``config.prompt_conditioning`` picks the family) -> the JAX package's
+    param tree ``{"params": {...}}`` of f32 numpy arrays: the inverse of
+    :func:`model_state_from_jax`.  The module that owns a tensor decides
+    its layout (a 2-D ``weight`` is a Dense kernel or an embedding), so the
+    config's model is built on the meta device to look them up.  Names the
+    model does not have, or lacks, raise."""
+    from prompt_tts_tpu_torch.models.prompt_tts import TTSPromptSpeaker
+    from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
+    cls = TTSPromptSpeaker if config.prompt_conditioning else TTSSingleSpeaker
+    owner = {}
+    for mname, m in cls(config, device="meta").named_modules():
+        for pname, _ in m.named_parameters(recurse=False):
+            owner[f"{mname}.{pname}" if mname else pname] = m
+    if set(owner) != set(state):
+        raise ValueError(
+            f"state dict does not match the config's model: missing "
+            f"{sorted(set(owner) - set(state))[:5]}, extra "
+            f"{sorted(set(state) - set(owner))[:5]}")
+    tree: dict = {}
+    for name, t in state.items():
+        *mods, leaf = name.split(".")
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        m = owner[name]
+        if leaf == "weight":
+            if isinstance(m, nn.Linear):
+                leaf, arr = "kernel", arr.T
+            elif isinstance(m, nn.Conv1d):
+                leaf, arr = "kernel", arr.transpose(2, 1, 0)
+            elif isinstance(m, nn.Embedding):
+                leaf = "embedding"
+            elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+                leaf = "scale"
+            else:
+                raise ValueError(f"{name}: no conversion rule for "
+                                 f"{type(m).__name__}")
+        node = tree
+        for k in mods:
+            node = node.setdefault(k, {})
+        node[leaf] = np.array(arr, copy=True)
+    return {"params": tree}
 
 
 def codec_state_from_jax(tree: dict) -> Dict[str, torch.Tensor]:

@@ -7,15 +7,17 @@ uncompressed tar holding, per utterance, ``<id>.npy`` (EnCodec codes
 optionally ``<id>.normalized.txt``.  Codes stay int16 in RAM; batches come
 out channels-last ``[B, T, 8]`` float32 in [-1, 1] (``c * 2/1023 - 1``),
 collated with numpy alone; text is phonemized once at load by the
-static-shape tokenizer.  Prompt crops, streaming and per-process sharding
-are not ported.
+static-shape tokenizer.  With ``prompt_frames`` (the prompt-conditioned
+family) each batch also carries ``prompt``: a same-utterance crop of its
+latents, drawn as the JAX package draws it.  Streaming and per-process
+sharding are not ported.
 """
 
 import io
 import queue
 import tarfile
 import threading
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -79,21 +81,53 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
 
 
 def _batch_order(n: int, batch_size: int, shuffle: bool, seed: int,
-                 drop_last: bool) -> Iterator[np.ndarray]:
+                 drop_last: bool) -> Iterator[Tuple[int, np.ndarray]]:
+    """``(start, rows)`` of each batch: ``start`` is the batch's position
+    in the epoch, which seeds its prompt crops."""
     order = np.arange(n)
     if shuffle:
         np.random.default_rng(seed).shuffle(order)
     stop = n - batch_size + 1 if drop_last else n
     for start in range(0, max(stop, 0), batch_size):
-        yield order[start: start + batch_size]
+        yield start, order[start: start + batch_size]
+
+
+def _crop_prompts(latents: np.ndarray, lengths: np.ndarray,
+                  prompt_frames: int, seed=(0, 0)) -> np.ndarray:
+    """Random same-utterance crops ``[B, prompt_frames, n_q]`` (a copy of
+    ``prompt_tts_tpu/data/dataset.py:_crop_prompts``, so the crops are the
+    JAX package's bits).
+
+    A crop stays inside the utterance's true frame span when it fits (else
+    it starts at 0), and is zero-padded where the latents are shorter than
+    ``prompt_frames``.  ``seed`` is the
+    ``(epoch seed, batch start)`` pair: a batch gets other crops in
+    another epoch, deterministically.
+    """
+    B, T, _ = latents.shape
+    rng = np.random.default_rng(tuple(seed))
+    out = np.zeros((B, prompt_frames, latents.shape[-1]), np.float32)
+    for i in range(B):
+        span = min(int(lengths[i]), T)
+        hi = max(span - prompt_frames, 0)
+        start = int(rng.integers(0, hi + 1))
+        chunk = latents[i, start: start + prompt_frames]
+        out[i, : chunk.shape[0]] = chunk
+    return out
 
 
 class CodeDataset:
-    """In-RAM dataset over a processed code tar (LJSpeech-scale)."""
+    """In-RAM dataset over a processed code tar (LJSpeech-scale).
+
+    ``prompt_frames``: each batch also carries ``prompt``, a random
+    same-utterance crop ``[B, prompt_frames, n_q]`` of its latents (the
+    prompt-conditioned family's voice prompt)."""
 
     def __init__(self, tar_path: str, max_seq_length: int = 550,
-                 tokenizer: Optional[Tokenizer] = None):
+                 tokenizer: Optional[Tokenizer] = None,
+                 prompt_frames: Optional[int] = None):
         self.max_seq_length = max_seq_length
+        self.prompt_frames = prompt_frames
         tok = tokenizer or Tokenizer(max_len=max_seq_length)
         self.codes: List[np.ndarray] = []
         self.text_ids: List[np.ndarray] = []
@@ -126,9 +160,9 @@ class CodeDataset:
     def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0,
                 drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
         """Fixed-shape numpy batches."""
-        for idx in _batch_order(len(self), batch_size, shuffle, seed,
-                                drop_last):
-            yield {
+        for start, idx in _batch_order(len(self), batch_size, shuffle, seed,
+                                       drop_last):
+            batch = {
                 "codes": collate_codes(np.stack([self.codes[i]
                                                  for i in idx])),
                 "text_ids": np.stack([self.text_ids[i] for i in idx]),
@@ -136,13 +170,20 @@ class CodeDataset:
                 "code_len": np.asarray([self.code_len[i] for i in idx],
                                        np.int32),
             }
+            if self.prompt_frames:
+                batch["prompt"] = _crop_prompts(
+                    batch["codes"], batch["code_len"], self.prompt_frames,
+                    seed=(seed, start))
+            yield batch
 
 
 class SyntheticDataset:
     """Deterministic fake corpus for smoke tests and compile checks."""
 
     def __init__(self, n: int = 64, frames: int = 900, n_q: int = 8,
-                 max_seq_length: int = 550, seed: int = 0):
+                 max_seq_length: int = 550, seed: int = 0,
+                 prompt_frames: Optional[int] = None):
+        self.prompt_frames = prompt_frames
         rng = np.random.default_rng(seed)
         self.codes = rng.integers(
             0, 1024, size=(n, n_q, frames)).astype(np.int16)
@@ -160,10 +201,16 @@ class SyntheticDataset:
     def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0,
                 drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
         # always whole batches, as in the JAX package
-        for idx in _batch_order(len(self), batch_size, shuffle, seed, True):
-            yield {
+        for start, idx in _batch_order(len(self), batch_size, shuffle, seed,
+                                       True):
+            batch = {
                 "codes": collate_codes(self.codes[idx]),
                 "text_ids": self.text_ids[idx],
                 "text_mask": self.text_mask[idx],
                 "code_len": self.code_len[idx],
             }
+            if self.prompt_frames:
+                batch["prompt"] = _crop_prompts(
+                    batch["codes"], batch["code_len"], self.prompt_frames,
+                    seed=(seed, start))
+            yield batch

@@ -7,6 +7,8 @@ the states of the generators that drive training, so a resumed run draws
 the same noise, timesteps and dropout masks it would have drawn.  A save
 writes into a temporary directory and renames it, so a checkpoint on disk
 is always whole; the oldest beyond ``max_to_keep`` are deleted.
+:meth:`CheckpointManager.read_model_state` is the inference read: the
+model's weights (or their EMA) alone, mapped from the file on the CPU.
 """
 
 import os
@@ -58,6 +60,31 @@ class CheckpointManager:
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._path(old))
         return final
+
+    def read_model_state(self, step: Optional[int] = None, ema: bool = False
+                         ) -> Tuple[Dict[str, torch.Tensor], int]:
+        """The model's ``state_dict`` at checkpoint ``step`` (default: the
+        latest) for inference, and the step: the trained parameters, or
+        with ``ema`` their moving average (under the model's names, with
+        the model's buffers).  The file is mapped on the CPU
+        (``mmap=True``), so the optimizer's moments are never read and no
+        tensor reaches a card until the caller loads it into a model.
+        Raises ``LookupError`` when ``ema`` is asked of a checkpoint
+        trained without one."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self._dir}")
+        sd = torch.load(os.path.join(self._path(step), "state.pt"),
+                        map_location="cpu", mmap=True,
+                        weights_only=True)["state"]
+        model = sd["model"]
+        if ema:
+            avg = sd.get("ema")
+            if avg is None:
+                raise LookupError(f"checkpoint step {step} in {self._dir} "
+                                  "has no EMA")
+            model = {k: avg.get(k, v) for k, v in model.items()}
+        return model, step
 
     def restore(self, state: TrainState, step: Optional[int] = None
                 ) -> Tuple[int, Dict[str, torch.Tensor]]:

@@ -1,16 +1,17 @@
 """The training loop: epochs, the train step, metrics, checkpoints.
 
 Port of ``prompt_tts_tpu/train/loop.py`` (reference train.py:21-147) on one
-device.  Steps are enqueued eagerly; the loss and gradient norm are pulled
-to the host (a device sync) every ``log_every`` steps.  Tensor, sequence
-and multi-host parallelism, profiling, ``--remat`` and warm starts from a
-reference checkpoint are not ported.
+device, for both model families (``TTSPromptSpeaker`` when the config has
+``prompt_conditioning``, else ``TTSSingleSpeaker``).  Steps are enqueued
+eagerly; the loss and gradient norm are pulled to the host (a device sync)
+every ``log_every`` steps.  Tensor, sequence and multi-host parallelism,
+profiling and ``--remat`` are not ported.
 """
 
 import logging
 import math
 import time
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -19,6 +20,7 @@ from prompt_tts_tpu_torch.config import Config
 from prompt_tts_tpu_torch.data.dataset import prefetch
 from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
 from prompt_tts_tpu_torch.models.layers import set_compute_dtype_
+from prompt_tts_tpu_torch.models.prompt_tts import TTSPromptSpeaker
 from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
 from prompt_tts_tpu_torch.pipeline import random_init_
 from prompt_tts_tpu_torch.train.checkpoint import CheckpointManager
@@ -29,17 +31,42 @@ from prompt_tts_tpu_torch.utils.metrics import MetricsWriter
 
 log = logging.getLogger(__name__)
 
-_BATCH_KEYS = ("codes", "text_ids", "text_mask")
+# what the step takes of a batch; "prompt" only where the dataset makes it
+_BATCH_KEYS = ("codes", "text_ids", "text_mask", "prompt")
+
+
+def adopt_init_state(model: torch.nn.Module,
+                     init_state: Mapping[str, torch.Tensor]) -> None:
+    """Load warm-start weights (a port state dict, e.g. a converted
+    reference checkpoint) into ``model``, in its dtypes, after checking
+    that they are the same tensors at the same shapes (the port of
+    ``prompt_tts_tpu/train/loop.py:_adopt_init_params``).  Raises
+    ``ValueError`` naming the first missing, extra and mis-shaped names."""
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in init_state.items()}
+    if want != got:
+        missing = sorted(set(want) - set(got))[:5]
+        extra = sorted(set(got) - set(want))[:5]
+        shapes = sorted(k for k in want
+                        if k in got and want[k] != got[k])[:5]
+        raise ValueError(
+            "init_state does not match this model config: "
+            f"missing={missing} extra={extra} shape-mismatch={shapes} "
+            "(is the config the checkpoint was trained under?)")
+    model.load_state_dict(init_state, strict=True)
 
 
 class Trainer:
     """Owns the model, train state and generators and runs epochs over a
     dataset.
 
-    The weights are drawn from ``config.train.seed`` on a CPU generator
-    (the repo holds no checkpoint), so every device starts from the same
-    weights.  ``dtype`` bf16 computes in bf16 over f32 parameters and
-    moments (the JAX ``--bf16``).  ``log_every`` 0 means 50 on the card
+    The weights are drawn from ``config.train.seed`` on a CPU generator,
+    so every device starts from the same weights, unless ``init_state``
+    (a port state dict of the config's model) gives them: a warm start,
+    checked by :func:`adopt_init_state`.  A prompt-conditioned config
+    needs a dataset that makes prompt crops (``prompt_frames``).
+    ``dtype`` bf16 computes in bf16 over f32 parameters and moments (the
+    JAX ``--bf16``).  ``log_every`` 0 means 50 on the card
     and 1 on the CPU.  ``eval_every`` > 0 runs :meth:`evaluate` on the
     train set every that many epochs.  The next batch is collated in a
     background thread (:func:`prefetch`) while the step runs.
@@ -48,13 +75,14 @@ class Trainer:
     def __init__(self, config: Config, dataset, log_dir: str,
                  ckpt_dir: Optional[str] = None, device="cuda",
                  dtype: torch.dtype = torch.float32, eval_every: int = 0,
-                 log_every: int = 0):
+                 log_every: int = 0,
+                 init_state: Optional[Mapping[str, torch.Tensor]] = None):
         if log_every < 0:
             raise ValueError(f"log_every must be >= 0, got {log_every}")
-        if config.model.prompt_conditioning:
-            raise NotImplementedError(
-                "Trainer: training the prompt-conditioned family is not "
-                "ported yet")
+        if (config.model.prompt_conditioning
+                and not getattr(dataset, "prompt_frames", None)):
+            raise ValueError("Trainer: a prompt-conditioned config needs a "
+                             "dataset with prompt_frames (prompt crops)")
         self.device = torch.device(device)
         self.config = config
         self.dataset = dataset
@@ -62,8 +90,14 @@ class Trainer:
         self.log_every = log_every or (
             50 if self.device.type == "cuda" else 1)
         tcfg = config.train
-        self.model = TTSSingleSpeaker(config.model, device=self.device)
-        random_init_(self.model, torch.Generator().manual_seed(tcfg.seed))
+        model_cls = (TTSPromptSpeaker if config.model.prompt_conditioning
+                     else TTSSingleSpeaker)
+        self.model = model_cls(config.model, device=self.device)
+        if init_state is not None:
+            adopt_init_state(self.model, init_state)
+        else:
+            random_init_(self.model,
+                         torch.Generator().manual_seed(tcfg.seed))
         set_compute_dtype_(self.model,
                            None if dtype == torch.float32 else dtype)
         self.schedule = linear_schedule(tcfg.num_train_timesteps,
@@ -87,7 +121,7 @@ class Trainer:
 
     def _to_device(self, batch: Dict[str, np.ndarray]):
         return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
-                for k in _BATCH_KEYS}
+                for k in _BATCH_KEYS if k in batch}
 
     def _generator_states(self) -> Dict[str, torch.Tensor]:
         states = {"train": self.generator.get_state()}

@@ -9,8 +9,11 @@ forward process, predict ε with dropout on, take the MSE in f32, backward
 :meth:`TrainState.apply_gradients`.  Dropout draws from the device's
 default generator, which the checkpoint saves beside the step's own.
 
-For parity tests the noise, timesteps and drop can be passed in instead of
-drawn.  ``--remat`` and the ``rbg`` dropout stream are not ported.
+Both families: a batch with a ``prompt`` key (the prompt-conditioned
+family's voice-prompt latents) passes it to the model, and the condition
+drop nulls the text and the prompt together.  For parity tests the noise,
+timesteps and drop can be passed in instead of drawn.  ``--remat`` and the
+``rbg`` dropout stream are not ported.
 """
 
 from typing import Callable, Dict, Optional
@@ -40,12 +43,23 @@ def _mse(pred: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred.float() - noise.float()) ** 2)
 
 
+def _condition(batch: Dict[str, torch.Tensor]):
+    """The model's conditioning inputs of a batch: ids and mask, and the
+    prompt latents when the batch has them (the prompt family)."""
+    cond = (batch["text_ids"], batch["text_mask"])
+    if "prompt" in batch:
+        cond = cond + (batch["prompt"],)
+    return cond
+
+
 def make_loss_fn(model: nn.Module, schedule: DiffusionSchedule,
                  cond_dropout_prob: float = 0.0) -> Callable:
     """The DDPM ε-MSE over one batch: ``codes [B,T,C]`` in [-1, 1],
-    ``text_ids [B,S]``, ``text_mask [B,S]``.  ``cond_dropout_prob`` > 0
-    nulls the text conditioning of each sample with that probability
-    (classifier-free guidance training).
+    ``text_ids [B,S]``, ``text_mask [B,S]`` and, for the prompt family,
+    ``prompt [B,Tp,C]``.  ``cond_dropout_prob`` > 0 nulls the conditioning
+    of each sample with that probability (classifier-free guidance
+    training): zero ids, an all-zero mask and zero prompt latents, the
+    null branch the sampler's guidance pairs against.
 
     ``loss_fn(batch, generator, noise=None, timesteps=None, drop=None)``
     draws noise, then timesteps, then the drop from ``generator``, unless
@@ -60,16 +74,16 @@ def make_loss_fn(model: nn.Module, schedule: DiffusionSchedule,
         noise, timesteps = _draw(codes, schedule.num_train_timesteps,
                                  generator, noise, timesteps)
         noisy = add_noise(schedule, codes, noise, timesteps)
-        text_ids, text_mask = batch["text_ids"], batch["text_mask"]
+        cond = _condition(batch)
         if cond_dropout_prob > 0.0:
             if drop is None:
                 drop = torch.rand((codes.shape[0], 1), generator=generator,
                                   device=codes.device) < cond_dropout_prob
-            text_ids = torch.where(drop, torch.zeros_like(text_ids),
-                                   text_ids)
-            text_mask = torch.where(drop, torch.zeros_like(text_mask),
-                                    text_mask)
-        pred = model(noisy, timesteps, text_ids, text_mask)
+            # [B, 1] broadcasts over ids and mask [B, S]; the prompt
+            # [B, Tp, C] takes it as [B, 1, 1]
+            cond = tuple(torch.where(drop.view(-1, *[1] * (c.dim() - 1)),
+                                     torch.zeros_like(c), c) for c in cond)
+        pred = model(noisy, timesteps, *cond)
         return _mse(pred, noise)
 
     return loss_fn
@@ -107,8 +121,7 @@ def make_eval_step(model: nn.Module, schedule: DiffusionSchedule):
         noise, timesteps = _draw(codes, schedule.num_train_timesteps,
                                  generator, noise, timesteps)
         noisy = add_noise(schedule, codes, noise, timesteps)
-        return _mse(model(noisy, timesteps, batch["text_ids"],
-                          batch["text_mask"]), noise)
+        return _mse(model(noisy, timesteps, *_condition(batch)), noise)
     return eval_step
 
 

@@ -461,23 +461,3 @@ def test_bf16_training_keeps_f32_parameters(tmp_path):
         assert p.dtype == torch.float32
         st = trainer.state.optimizer.state[p]
         assert st["exp_avg"].dtype == torch.float32
-
-
-def test_trainer_refuses_the_prompt_family_before_any_weights(
-        tmp_path, monkeypatch):
-    """A prompt-conditioned config is not trainable yet: the Trainer says
-    so by name before it builds (or draws) any weights."""
-    import prompt_tts_tpu_torch.train.loop as loop
-
-    def no_weights(*args, **kwargs):
-        raise AssertionError("weights were made")
-
-    monkeypatch.setattr(loop, "TTSSingleSpeaker", no_weights)
-    monkeypatch.setattr(loop, "random_init_", no_weights)
-    cfg = dataclasses.replace(SMOKE, model=dataclasses.replace(
-        SMOKE.model, prompt_conditioning=True))
-    ds = SyntheticDataset(n=2, frames=48, max_seq_length=32)
-    with pytest.raises(NotImplementedError,
-                       match="training the prompt-conditioned family is "
-                             "not ported yet"):
-        Trainer(cfg, ds, log_dir=str(tmp_path), device="cpu")
