@@ -16,11 +16,14 @@ Phases, each printed as one JSON object per line:
      round and to the f32 plain versions in relative Frobenius norm; also
      at every head dim on ragged shapes, and on the prompt path's inputs
      (CFG's null text with every key masked, cross-attention over 550 + 32
-     keys, the prompt encoder's calls); both LSTM schedules at the
-     decoder's B=4, the encoder's B=32 and the prompt encode's T=225, run
-     twice for the same bits, ms a layer and us a step; the
+     keys, the prompt encoder's calls), and in bf16 at the serve paths'
+     batches of 1 and 2; both LSTM schedules at the decoder's B=4, the
+     encoder's B=32, the prompt encode's T=225 and the serve paths' B=1
+     (prefixes of 300 and 600, 900, the speaker registry's 225 and 15),
+     run twice for the same bits, ms a layer and us a step; the
      fused resnet block at every block shape of one UNet forward (bf16 at
-     B=8, held to the module arithmetic and to fused_resnet_block_plain,
+     B=8, 4, 2 and 1, held to the module arithmetic and to
+     fused_resnet_block_plain,
      run twice for the same bits, timed per launch by the profiler, and
      the wrapper's host cost per call; f32 at B=1); the RVQ encode inside
      the encode slice (its inputs
@@ -40,6 +43,28 @@ Phases, each printed as one JSON object per line:
      CFG 3, bf16; checks the WAVs, codes and launches, times a warm repeat
      and profiles it; then a warm codec encode and decode in the LSTM
      schedule the CLI did not take.
+  4b'. serve: ``cli.serve`` at ``ModelConfig()`` in this process
+     (``build_server``, then ``serve_forever`` on a thread), DDIM-50,
+     bf16, ``--max_batch 4``, over HTTP on localhost: the startup, one
+     request (PCM bit-equal to the in-process batch it is padded to, and
+     its exact launches), a wave of 8 concurrent requests, twice (wall,
+     x real time, peak memory, then a device-only profile), in turns
+     with the same texts as two serial in-process batches (serial, wave,
+     wave, serial), a streamed request (time to the first chunk;
+     PCM within one step of the full decode, and where it leaves it:
+     each decoder layer on a prefix of its input against the full
+     input's output), long-form over two windows
+     whole and streamed (bit-equal to ``synthesize_long`` /
+     ``synthesize_long_stream``), a streamed and a batched request at
+     once (each bit-equal to its result alone), ``/stats``, the drain
+     with a request in flight; then ``cli.synthesize --long`` (the file of
+     ``synthesize_long``), a path of its own.
+  4b''. prompt_serve: the same server on the prompt family (DPM-25, CFG
+     3) with ``--speakers``: two 3 s voices and a 0.2 s one at 22.05 kHz
+     (repeat-padded), the RVQ launches of the registration, the RVQ
+     kernel at the registry's [1, 225] and [1, 15] against its plain
+     version, one request a speaker bit-equal to the in-process call, an
+     unknown speaker's 400.
   4c. prompt_small: the full-width prompt model, f32, batch 1, DPM-2, CFG
      3, on the card (kernels) against the CPU (plain versions), same
      weights, x_T and prompt codes.
@@ -98,6 +123,7 @@ with a profile.  ``--lstm-times``, ``--rvq-times``, ``--resnet-times`` and
 so that two checkouts can be timed in one call.
 """
 
+import contextlib
 import dataclasses
 import gc
 import io
@@ -130,6 +156,11 @@ ENCODE_UTTERANCES, ENCODE_SR, ENCODE_BATCH = 64, 22050, 32
 # LJSpeech's rate (resampled to 24 kHz: 225 frames, the config's
 # prompt_frames)
 PROMPT_STEPS, GUIDANCE, PROMPT_S = 25, 3.0, 3.0
+# the serve phase's wave of concurrent requests: two batches of 4
+SERVE_WAVE = 8
+# streamed PCM against the full-window decode of the same codes: at most
+# one pcm16 step (a prefix decode may take other cuDNN algorithms)
+STREAM_PCM_STEPS = 1
 
 # Tolerances, kernel vs plain on the same inputs.
 # f32 attention: same math, f32 sums in another order over <= 900 keys.
@@ -228,11 +259,21 @@ PROMPT_ATTN_CALLS = ATTN_CALLS + PROMPT_BLOCKS + 1
 # the prompt family's train slice trains for guidance: the condition drop
 # (text and prompt nulled together) at this rate, and an EMA at this decay
 PROMPT_COND_DROP, PROMPT_EMA = 0.1, 0.999
+# the serve phase's streamed request decodes the prefixes of ceil(900/3)
+# = 300 frames; the prompt server registers a 3 s voice (225 frames) and a
+# 0.2 s one (15 frames) at batch 1
+STREAM_PREFIXES = (300, 600)
+SHORT_VOICE_S = 0.2
+PROMPT_FRAMES = int(PROMPT_S * 75)
+SHORT_VOICE_FRAMES = -(-int(SHORT_VOICE_S * SAMPLE_RATE) // 320)
 # (T, B) of the LSTM calls on the paths: the decoder's (the synthesis
-# slices' batch), the encoder's (the encode slice's 32), and the prompt
-# encode's T=225
+# slices' batch), the encoder's (the encode slice's 32), the prompt
+# encode's T=225; then the serve paths' batch-1 calls: the decoder's
+# prefixes and whole window, the speaker registry's encoder
 LSTM_SHAPES = ((900, N_REQUESTS), (900, ENCODE_BATCH),
-               (int(PROMPT_S * 75), N_REQUESTS))
+               (PROMPT_FRAMES, N_REQUESTS),
+               *((T, 1) for T in STREAM_PREFIXES), (900, 1),
+               (PROMPT_FRAMES, 1), (SHORT_VOICE_FRAMES, 1))
 # [B, T] of the RVQ encode calls on the paths: the encode slice's batch,
 # the prompt encode's (4 requests x 225 frames) and one prompt
 RVQ_TIME_SHAPES = ((ENCODE_BATCH, 900), (N_REQUESTS, int(PROMPT_S * 75)),
@@ -244,6 +285,8 @@ KERNELS = ("attention_fwd", "attention_bwd", "lstm", "lstm_t", "rvq_encode",
 TEXTS = ["Hello from the port.", "Printing, in the only sense with which "
          "we are at present concerned.", "One two three four.",
          "The quick brown fox jumps over the lazy dog."]
+# the serve phase's long-form text: two windows of <= 550 tokens
+LONG_TEXT = " ".join(TEXTS * 3)
 
 
 def emit(obj):
@@ -455,8 +498,9 @@ def _bwd_tol(dtype, all_masked=False):
 
 def phase_attention_fwd(smi):
     """The forward kernel against its plain version at B=4, f32 and bf16,
-    at the paths' shapes (timed), at ragged shapes and every head dim, and
-    on the prompt path's inputs; returns the bf16 sums over one UNet
+    at the paths' shapes (timed), at ragged shapes and every head dim, on
+    the prompt path's inputs, and in bf16 at the serve paths' batches of 1
+    and 2; returns the bf16 sums over one UNet
     forward's 32 calls."""
     import torch
     from prompt_tts_tpu_torch.ops.attention import (
@@ -506,7 +550,7 @@ def phase_attention_fwd(smi):
                     unet["bytes"] += n * nbytes
                     unet["exps"] += n * exps
     err_all = max(err_all, _attention_ragged(smi),
-                  _attention_prompt_cases(smi))
+                  _attention_prompt_cases(smi), _attention_serve_cases(smi))
     # one UNet forward's 32 attention calls, bf16, B=4
     b = bound(unet.pop("flop"), unet.pop("bytes"), "bfloat16")
     exp_ms = exp_floor(unet.pop("exps"))
@@ -609,6 +653,50 @@ def _attention_prompt_cases(smi):
                                      f"{fros}")
             err_all = max(err_all, err, *errs.values())
             del q, k, v, out, lse, do, got
+    return err_all
+
+
+def _attention_serve_cases(smi):
+    """The forward kernel in bf16 at the serve paths' small batches against
+    its plain versions: B=1 (a streamed or long-form streamed request) and
+    B=2 (the prompt server's streamed warm-up under CFG), on the
+    synthesis path's calls (``attn_cases``) and the prompt path's (the
+    null text, the cross-attention over 550 + 32 keys, the prompt
+    encoder).  Checked, not timed.  Returns the largest error."""
+    import torch
+    from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
+    g = torch.Generator("cuda").manual_seed(13)
+    Tk = TEXT_LEN + PROMPT_TOKENS
+    cases = [(label, Tq, Tk_, H, D, "masked" if masked else None)
+             for label, Tq, Tk_, H, D, masked, _ in attn_cases()]
+    cases += [("prompt path: null text, all keys masked", TEXT_LEN,
+               TEXT_LEN, TEXT_HEADS, TEXT_HEAD_DIM, "all"),
+              (f"prompt path: cross T=900 Tk={Tk} D=32", 900, Tk, 8, 32,
+               None),
+              (f"prompt path: prompt self T={PROMPT_T} D=96", PROMPT_T,
+               PROMPT_T, 8, 96, None),
+              (f"prompt path: prompt pool T={PROMPT_TOKENS} Tk={PROMPT_T} "
+               "D=96", PROMPT_TOKENS, PROMPT_T, 8, 96, None)]
+    err_all = 0.0
+    for B in (1, 2):
+        for label, Tq, Tk_, H, D, mask in cases:
+            all_masked = mask == "all"
+            q, k, v, bias = attn_inputs(g, B, Tq, Tk_, H, D, mask == "masked",
+                                        torch.bfloat16)
+            if all_masked:
+                bias = torch.full((B, 1, 1, Tk_), -1e4, device="cuda")
+            with torch.no_grad():
+                out = flash_attention(q, k, v, bias)
+                err, fro, ok = _fwd_check(out, q, k, v, bias, all_masked)
+            emit({"phase": "kernel", "kernel": "attention_fwd",
+                  "case": "serve: " + label, "dtype": "bfloat16", "B": B,
+                  "max_abs_err": err, "fro_err": fro,
+                  "tol": _fwd_tol(torch.bfloat16, all_masked), "ok": ok,
+                  "card": smi})
+            if not ok:
+                raise AssertionError(f"attention serve {label} B={B}: max "
+                                     f"abs err {err}, Frobenius {fro}")
+            err_all = max(err_all, err)
     return err_all
 
 
@@ -876,15 +964,20 @@ def _lstm_case(smi, T, B, g):
 
 
 def phase_lstm(smi):
-    """Both LSTM kernels at the paths' three shapes (``LSTM_SHAPES``).
-    Returns the step and persistent rows."""
+    """Both LSTM kernels at the paths' shapes (``LSTM_SHAPES``).  Returns
+    the step and persistent rows: the decoder's, with the encoder's, the
+    prompt encode's and the serve paths' batch-1 shapes inside."""
     import torch
     g = torch.Generator("cuda").manual_seed(2)
-    dec, enc, prompt = (_lstm_case(smi, T, B, g) for T, B in LSTM_SHAPES)
+    cases = [_lstm_case(smi, T, B, g) for T, B in LSTM_SHAPES]
+    dec, enc, prompt = cases[:3]
     rows = {}
     for name in ("lstm", "lstm_t"):
-        rows[name] = dict(dec[name], encoder_b32=enc[name],
-                          prompt_encode=prompt[name])
+        rows[name] = dict(
+            dec[name], encoder_b32=enc[name], prompt_encode=prompt[name],
+            serve_b1={f"T={T}": c[name] for (T, _), c in
+                      zip(LSTM_SHAPES[3:], cases[3:])},
+            max_abs_err=max(c[name]["max_abs_err"] for c in cases))
     return rows["lstm"], rows["lstm_t"]
 
 
@@ -1194,9 +1287,10 @@ def synth_times(smi):
 
 def phase_resnet(smi):
     """The fused resnet block at every block shape of one flagship UNet
-    forward: bf16 at B=8 (CFG's doubled batch of 4 requests) and at B=4
-    (the DDIM slice's batch), where the tile rule picks other tiles, each
-    checked against the module arithmetic and against
+    forward: bf16 at B=8 (CFG's doubled batch of 4 requests), at B=4 (the
+    DDIM slice's batch), at B=1 (a streamed or long-form streamed request)
+    and at B=2 (the same under CFG), where the tile rule picks other tiles,
+    each checked against the module arithmetic and against
     fused_resnet_block_plain and run twice for the same bits; B=8 also
     timed (kernel, its launches, plain version, and the channels-first
     library sequence); f32 at B=1 (checked).  Then the wrapper's host
@@ -1222,6 +1316,8 @@ def phase_resnet(smi):
         for dtype, B, tol in ((torch.bfloat16, 2 * N_REQUESTS,
                                RESNET_TOL_BF16),
                               (torch.bfloat16, N_REQUESTS, RESNET_TOL_BF16),
+                              (torch.bfloat16, 1, RESNET_TOL_BF16),
+                              (torch.bfloat16, 2, RESNET_TOL_BF16),
                               (torch.float32, 1, RESNET_TOL_F32)):
             timed = dtype == torch.bfloat16 and B == 2 * N_REQUESTS
             block = _resnet_block(cin, cout, dtype, g)
@@ -1288,7 +1384,7 @@ def phase_resnet(smi):
             del block, x, out, ref
         per_shape[(T, cin, cout)] = row
     emit({"phase": "resnet_tiles_held", "batches": [2 * N_REQUESTS,
-                                                    N_REQUESTS],
+                                                    N_REQUESTS, 1, 2],
           "tiles": sorted(list(t) for t in tiles_held)})
     unet = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0,
             "bytes": 0}
@@ -2101,14 +2197,17 @@ def _kernel_class(name):
     return "other"
 
 
-def profile_step(step):
+def profile_step(step, cpu=True):
     """Device time by kernel class of one call of ``step``
-    (torch.profiler)."""
+    (torch.profiler); ``cpu=False`` traces the device alone, which costs
+    the host less where many threads dispatch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -2467,6 +2566,533 @@ def phase_ckpt_synth(smi, tmp, prompt_ckpt, prompt_cfg, single_ckpt):
             for k in KERNELS}
 
 
+def _http(port, method, path, obj=None, timeout=300):
+    """(status, body, headers) of one request to the in-process server."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        body = None if obj is None else (
+            obj if isinstance(obj, str) else json.dumps(obj))
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read(), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def _streamed(port, obj):
+    """POST ``obj`` on a raw socket and read the chunked response as it
+    arrives: (status line, chunk payloads, s to the first chunk, s to the
+    end)."""
+    import socket
+    body = json.dumps(obj).encode()
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port), timeout=300) as s:
+        s.sendall(b"POST /synthesize HTTP/1.1\r\nHost: x\r\n"
+                  b"Content-Type: application/json\r\n"
+                  + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        f = s.makefile("rb")
+        status = f.readline().decode().strip()
+        headers = {}
+        while True:
+            line = f.readline().strip()
+            if not line:
+                break
+            k, v = line.decode().split(":", 1)
+            headers[k.strip().lower()] = v.strip()
+        if headers.get("transfer-encoding") != "chunked":
+            raise AssertionError(f"not a chunked response: {status} "
+                                 f"{headers}")
+        chunks, t_first = [], None
+        while True:
+            n = int(f.readline().strip(), 16)
+            if n == 0:
+                break
+            chunks.append(f.read(n))
+            f.read(2)
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+    return status, chunks, t_first, time.perf_counter() - t0
+
+
+def _wav_pcm(data):
+    if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
+        raise AssertionError(f"not a WAV: {data[:16]!r}")
+    return data[44:]
+
+
+def _bits(pcm):
+    return pcm.astype("<i2").tobytes()
+
+
+def _start_server(argv):
+    """``cli.serve.build_server`` in this process, serving on a thread:
+    (server, port, serving thread)."""
+    import threading
+    from prompt_tts_tpu_torch.cli import serve
+    server = serve.build_server(argv)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, server.server_address[1], thread
+
+
+def _stop_server(server, thread, port=None):
+    """Shut down with one request in flight (when ``port`` is given): it
+    must complete during the drain.  Returns (its status, drain s)."""
+    import threading
+    result = {}
+    caller = None
+    if port is not None:
+        caller = threading.Thread(target=lambda: result.setdefault(
+            "r", _http(port, "POST", "/synthesize",
+                       {"text": TEXTS[1], "seed": 99})))
+        caller.start()
+        deadline = time.monotonic() + 60
+        while not server.stats.inflight and time.monotonic() < deadline:
+            time.sleep(0.005)
+    t0 = time.perf_counter()
+    server.shutdown()
+    server.drain()
+    drain_s = time.perf_counter() - t0
+    server.server_close()
+    thread.join(60)
+    if caller is not None:
+        caller.join(300)
+    return result.get("r", (None,))[0], drain_s
+
+
+@contextlib.contextmanager
+def _plain_lstm():
+    """The codec's LSTM layers on the persistent kernel's plain version (the
+    card's f32 matmuls in a Python loop) inside the scope."""
+    from prompt_tts_tpu_torch.codec import layers
+    from prompt_tts_tpu_torch.ops.cuda.lstm import lstm_recurrence_t_plain
+    kernel = layers.lstm_recurrence_t
+    layers.lstm_recurrence_t = lstm_recurrence_t_plain
+    try:
+        yield
+    finally:
+        layers.lstm_recurrence_t = kernel
+
+
+@contextlib.contextmanager
+def _no_cudnn():
+    """PyTorch's own convolutions in place of cuDNN's inside the scope."""
+    import torch
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = enabled
+
+
+def _prefix_diff(full, part, axis=1):
+    """max |part - full| over the part's length along ``axis``."""
+    n = part.shape[axis]
+    return (part - full.narrow(axis, 0, n)).abs().max().item()
+
+
+def stream_prefix_cause(smi, synth, text, seed):
+    """Where the streamed PCM leaves the full decode, on the card, for the
+    codes of ``text`` at ``seed`` (batch 1).  First the streamed PCM
+    (prefixes of ``STREAM_PREFIXES``) against the full window's, with the
+    LSTM kernel, with its plain version and with cuDNN off.  Then, for each
+    prefix, each decoder layer on its input from the full window and on the
+    first part of that input, the part a prefix gives it: the outputs'
+    common part compared (0: the layer gives a prefix the full decode's
+    bits); for the LSTM also its plain version, and its first layer's input
+    projection (one GEMM over every frame) and recurrence apart; for a
+    layer that differs, the same without cuDNN.  Run with no other work on
+    the card.  Returns the PCM counts and the first layer that differs."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from prompt_tts_tpu_torch.codec.layers import CodecLSTM
+    from prompt_tts_tpu_torch.codec.rvq import rvq_decode
+    from prompt_tts_tpu_torch.ops.cuda.lstm import (
+        lstm_recurrence_t, lstm_recurrence_t_plain,
+    )
+    from prompt_tts_tpu_torch.pipeline import full_f32, wav_to_pcm16
+    runner, dec = synth.codec_runner, synth.codec_runner.codec.decoder
+    _, codes = synth.synthesize([text], seed=seed, return_codes=True)
+    codes = torch.as_tensor(codes, device=synth.device)
+    chunk = STREAM_PREFIXES[0]
+
+    def pcm_off():
+        full = wav_to_pcm16(runner.decode(codes))[0].cpu().numpy()
+        streamed = np.concatenate(list(synth._decode_stream(
+            codes, chunk, True)), axis=1)[0]
+        d = np.abs(streamed.astype(np.int32) - full.astype(np.int32))
+        return {"samples_off": int((d > 0).sum()), "max_steps": int(d.max())}
+
+    pcm = {"kernel": pcm_off()}
+    with _plain_lstm():
+        pcm["plain_lstm"] = pcm_off()
+    with _no_cudnn():
+        pcm["no_cudnn"] = pcm_off()
+    first_off = {}
+    with torch.no_grad(), full_f32():
+        for prefix in STREAM_PREFIXES:
+            x = rvq_decode(codes, runner.codec.codebooks[:codes.shape[1]])
+            t, rows = prefix, []
+            for name in dec._names:
+                layer = None if name is None else getattr(dec, name)
+                fn = F.elu if layer is None else layer
+                y, part = fn(x), fn(x[:, :t].contiguous())
+                row = {"layer": name or "elu",
+                       "type": ("ELU" if layer is None
+                                else type(layer).__name__),
+                       "T": x.shape[1], "part": t,
+                       "max_abs_diff": _prefix_diff(y, part)}
+                if isinstance(layer, CodecLSTM):
+                    with _plain_lstm():
+                        row["plain_lstm"] = _prefix_diff(
+                            fn(x), fn(x[:, :t].contiguous()))
+
+                    def proj(z, w=layer.l0_w_ih, b=layer.l0_b):
+                        return torch.einsum("btc,gc->btg", z, w) + b
+                    xp = proj(x)
+                    row["l0_projection"] = _prefix_diff(
+                        xp, proj(x[:, :t].contiguous()))
+                    xp = xp.transpose(0, 1).contiguous()
+                    for key, rec in (
+                            ("l0_recurrence", lstm_recurrence_t),
+                            ("l0_recurrence_plain", lstm_recurrence_t_plain)):
+                        row[key] = _prefix_diff(
+                            rec(xp, layer.l0_w_hh),
+                            rec(xp[:t].contiguous(), layer.l0_w_hh), axis=0)
+                elif layer is not None and row["max_abs_diff"]:
+                    with _no_cudnn():
+                        row["no_cudnn"] = _prefix_diff(
+                            fn(x), fn(x[:, :t].contiguous()))
+                rows.append(row)
+                if row["max_abs_diff"] and prefix not in first_off:
+                    first_off[prefix] = row["layer"] + " " + row["type"]
+                x, t = y, part.shape[1]
+            emit({"phase": "stream_prefix", "prefix": prefix,
+                  "layers": rows, "card": smi})
+    out = {"pcm_vs_full": pcm, "first_layer_off": first_off}
+    emit({"phase": "stream_prefix", "codes": list(codes.shape),
+          "chunk": chunk, **out, "card": smi})
+    return out
+
+
+def phase_serve(smi, tmp):
+    """``cli.serve`` at ``ModelConfig()`` in this process (DDIM-50, bf16
+    denoiser, f32 decode, batch 4), driven over HTTP on localhost; then
+    ``cli.synthesize --long``.  Returns the server's launches (its startup,
+    its requests and the drain) and the CLI's."""
+    import threading
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.cli import synthesize as cli
+    from prompt_tts_tpu_torch.config import ModelConfig
+    from prompt_tts_tpu_torch.utils.wav import read_wav, write_wav
+    n_samples = int(AUDIO_S * SAMPLE_RATE)
+    path = dict.fromkeys(KERNELS, 0)
+    cli_path = dict.fromkeys(KERNELS, 0)
+
+    def served(fn, into=path):
+        """Run ``fn`` with the counts at 0, and add what it launched to the
+        path's launches."""
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        for k in KERNELS:
+            into[k] += got[k]
+        return out, got
+
+    checks, out = {}, {}
+    (server, port, thread), startup = served(lambda: _start_server(
+        ["--port", "0", "--steps", str(STEPS), "--max_batch",
+         str(N_REQUESTS), "--batch_window_ms", "30", "--crossfade_ms",
+         "20"]))
+    synth = server.synth
+    out["startup_s"] = server.startup
+    out["startup_launches"] = startup
+
+    # 1. one request alone: the batch of 4 it is padded to, in process
+    t0 = time.perf_counter()
+    (status, data, _), single = served(lambda: _http(
+        port, "POST", "/synthesize", {"text": TEXTS[0], "seed": 5}))
+    single_s = time.perf_counter() - t0
+    want = want_counts(attention_fwd=TEXT_LAYERS + 32 * STEPS,
+                       resnet=len(resnet_shapes(ModelConfig())) * STEPS,
+                       lstm=2)
+    ref = synth.synthesize([TEXTS[0]] + [""] * (N_REQUESTS - 1), seed=5,
+                           pcm16=True)[0]
+    checks["single_200"] = status == 200
+    checks["single_bits"] = _wav_pcm(data) == _bits(ref)
+    checks["single_launches"] = single == want
+    out.update(single_s=single_s, single_launches=single,
+               want_single_launches=want)
+
+    # 2. a wave of concurrent requests: two batches of 4
+    def wave():
+        res = [None] * SERVE_WAVE
+
+        def call(i):
+            res[i] = _http(port, "POST", "/synthesize",
+                           {"text": TEXTS[i % len(TEXTS)], "seed": i})
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(SERVE_WAVE)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        return res
+
+    # the same 8 texts as two in-process batches, each pulled before the
+    # next is dispatched: what the two-stage pipeline is measured against,
+    # in turns (serial, wave, wave, serial)
+    texts = [TEXTS[i % len(TEXTS)] for i in range(SERVE_WAVE)]
+
+    def serial():
+        t0 = time.perf_counter()
+        for k in range(0, SERVE_WAVE, N_REQUESTS):
+            synth.synthesize(texts[k:k + N_REQUESTS], seed=k, pcm16=True)
+        return time.perf_counter() - t0
+
+    serial_s, wave_s = [serial()], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res, _ = served(wave)
+        wave_s.append(time.perf_counter() - t0)
+        checks["wave_200"] = checks.get("wave_200", True) and all(
+            r is not None and r[0] == 200 for r in res)
+        checks["wave_samples"] = checks.get("wave_samples", True) and all(
+            len(_wav_pcm(r[1])) == 2 * n_samples for r in res if r)
+    serial_s.append(serial())
+    prof = profile_step(lambda: served(wave), cpu=False)
+    if not prof["kernels"]:
+        raise AssertionError(f"the profiler saw no kernel of the wave: "
+                             f"{prof}")
+    out.update(wave_s=wave_s, wave_x_realtime=[SERVE_WAVE * AUDIO_S / w
+                                               for w in wave_s],
+               serial_two_batches_s=serial_s,
+               wave_peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               wave_profile={k: prof[k] for k in (
+                   "wall_ms", "busy_ms", "kernels", "idle_share",
+                   "by_class_ms")})
+
+    # 3. one streamed request: the first chunk against the full latency,
+    # the PCM against the full-window decode of the same codes
+    (st, chunks, t_first, t_all), _ = served(lambda: _streamed(
+        port, {"text": TEXTS[2], "seed": 6, "stream": True}))
+    full = synth.synthesize([TEXTS[2]], seed=6, pcm16=True)[0]
+    got = np.frombuffer(b"".join(chunks)[44:], "<i2").astype(np.int32)
+    steps = (np.abs(got - full.astype(np.int32))
+             if len(got) == len(full) else None)
+    diff = None if steps is None else steps.max()
+    checks["stream_200"] = " 200 " in st + " "
+    checks["stream_chunks"] = [len(c) for c in chunks] == [
+        44 + 640 * 300, 640 * 300, 640 * 300]
+    checks["stream_pcm"] = diff is not None and diff <= STREAM_PCM_STEPS
+    out.update(stream_first_chunk_s=t_first, stream_total_s=t_all,
+               stream_max_pcm_steps=None if diff is None else int(diff),
+               stream_samples_off=None if diff is None else int(
+                   (steps > 0).sum()))
+
+    # 4. long-form, in one response and streamed
+    n_windows = len(synth.split_long_text(LONG_TEXT))
+    checks["long_windows"] = n_windows >= 2
+    t0 = time.perf_counter()
+    (status, data, _), _ = served(lambda: _http(
+        port, "POST", "/synthesize", {"text": LONG_TEXT, "seed": 7}))
+    long_s = time.perf_counter() - t0
+    ref = synth.synthesize_long(LONG_TEXT, seed=7, max_batch=N_REQUESTS,
+                                pcm16=True, pad_groups=True,
+                                crossfade_ms=20.0)
+    checks["long_bits"] = status == 200 and _wav_pcm(data) == _bits(ref)
+    (st, chunks, t_first_long, t_all_long), _ = served(lambda: _streamed(
+        port, {"text": LONG_TEXT, "seed": 7, "stream": True}))
+    ref = np.concatenate(list(synth.synthesize_long_stream(
+        LONG_TEXT, seed=7, pcm16=True, crossfade_ms=20.0)))
+    data = b"".join(chunks)
+    checks["long_stream_bits"] = (data[40:44] == b"\xff" * 4
+                                  and data[44:] == _bits(ref))
+    out.update(long_windows=n_windows, long_s=long_s,
+               long_samples=len(ref), long_stream_first_chunk_s=t_first_long,
+               long_stream_total_s=t_all_long)
+
+    # 5. a streamed and a batched request in flight together, each against
+    # its result alone
+    both, spans = {}, {}
+    t_base = time.perf_counter()
+
+    def timed(key, fn):
+        t0 = time.perf_counter() - t_base
+        both[key] = fn()
+        spans[key] = (t0, time.perf_counter() - t_base)
+
+    def together():
+        ts = [threading.Thread(target=timed, args=("stream", lambda:
+                  _streamed(port, {"text": TEXTS[3], "seed": 8,
+                                   "stream": True}))),
+              threading.Thread(target=timed, args=("batch", lambda: _http(
+                  port, "POST", "/synthesize",
+                  {"text": TEXTS[1], "seed": 9})))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(300)
+    served(together)
+    out["together_spans_s"] = spans
+    ref_stream = np.concatenate(list(synth.synthesize_stream(
+        [TEXTS[3]], seed=8, chunk_frames=300, pcm16=True)), axis=1)[0]
+    ref_batch = synth.synthesize([TEXTS[1]] + [""] * (N_REQUESTS - 1),
+                                 seed=9, pcm16=True)[0]
+    checks["together_stream_bits"] = ("stream" in both and b"".join(
+        both["stream"][1])[44:] == _bits(ref_stream))
+    checks["together_batch_bits"] = ("batch" in both and both["batch"][0]
+                                     == 200 and _wav_pcm(both["batch"][1])
+                                     == _bits(ref_batch))
+
+    # 6. the stats, then the shutdown with one request in flight
+    status, body, _ = _http(port, "GET", "/stats")
+    stats = json.loads(body)
+    n_posts = 1 + 3 * SERVE_WAVE + 1 + 2 + 2
+    checks["stats"] = (status == 200 and stats["requests"] == n_posts
+                       and stats["errors"] == 0 and stats["rejected"] == 0
+                       and stats["streamed"] == 3
+                       and stats["latency_s_p50"] <= stats["latency_s_p90"])
+    (drained, drain_s), _ = served(lambda: _stop_server(server, thread,
+                                                        port))
+    checks["drain"] = drained == 200 and not thread.is_alive()
+    out.update(stats=stats, drain_s=drain_s)
+
+    # 7. cli.synthesize --long writes synthesize_long's wav
+    wav_path = os.path.join(tmp, "long.wav")
+    (_, wavs, _), _ = served(lambda: cli.main(
+        ["--text", LONG_TEXT, "--long", "--crossfade_ms", "20", "--out",
+         wav_path, "--steps", str(STEPS), "--device", "cuda", "--seed",
+         "3"]), into=cli_path)
+    ref = synth.synthesize_long(LONG_TEXT, seed=3, crossfade_ms=20.0)
+    ref_path = os.path.join(tmp, "long_ref.wav")
+    write_wav(ref_path, ref, SAMPLE_RATE)
+    with open(wav_path, "rb") as a, open(ref_path, "rb") as b:
+        checks["cli_long_bits"] = a.read() == b.read()
+    checks["cli_long_wav"] = bool(np.array_equal(wavs[0], ref))
+    out["cli_long_s"] = len(read_wav(wav_path)[0]) / SAMPLE_RATE
+    out["stream_prefix"] = stream_prefix_cause(smi, synth, TEXTS[2], 6)
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit({"phase": "serve", "what": f"cli.serve ModelConfig() in process, "
+          f"DDIM-{STEPS} bf16 + f32 decode, --max_batch {N_REQUESTS}: one "
+          f"request, a wave of {SERVE_WAVE}, a streamed one, long-form "
+          f"({n_windows} windows) whole and streamed, a streamed and a "
+          f"batched one together, /stats, the drain; cli.synthesize --long",
+          "checks": checks, **out, "path_launches": path,
+          "cli_long_launches": cli_path, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"serve checks failed: {checks}")
+    del server, synth
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path, cli_path
+
+
+def phase_prompt_serve(smi, tmp):
+    """``cli.serve`` on the prompt family at full width (DPM-25, CFG 3,
+    batch 4) with ``--speakers``: two 3 s voices and a 0.2 s one at 22.05
+    kHz; one request a speaker against the in-process call, and an unknown
+    speaker; the RVQ kernel at the registry's shapes.  Returns the path's
+    launches and the RVQ checks' largest score gap."""
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.config import Config
+    from prompt_tts_tpu_torch.pipeline import full_f32
+    from prompt_tts_tpu_torch.utils.resample import resample
+    from prompt_tts_tpu_torch.utils.wav import read_wav, write_wav
+    cfg = prompt_config()
+    cfg_path = os.path.join(tmp, "serve_prompt.json")
+    Config(model=cfg).to_json(cfg_path)
+    spk = os.path.join(tmp, "speakers")
+    os.makedirs(spk)
+    rng = np.random.default_rng(23)
+    lengths = {"ann": PROMPT_S, "ben": PROMPT_S, "cy": SHORT_VOICE_S}
+    for name, s in lengths.items():
+        write_wav(os.path.join(spk, f"{name}.wav"),
+                  tone(rng, int(s * ENCODE_SR)), ENCODE_SR)
+    path = dict.fromkeys(KERNELS, 0)
+    zero_counts()
+    server, port, thread = _start_server(
+        ["--port", "0", "--config_file", cfg_path, "--speakers", spk,
+         "--sampler", "dpm", "--steps", str(PROMPT_STEPS),
+         "--guidance_scale", str(GUIDANCE), "--max_batch", str(N_REQUESTS)])
+    torch.cuda.synchronize()
+    startup = counts()
+    synth = server.synth
+    speakers = server.speakers
+    short = speakers["cy"]
+    F = SHORT_VOICE_FRAMES
+    checks = {
+        "startup_rvq": startup["rvq_encode"] == len(lengths),
+        "speakers": sorted(speakers) == sorted(lengths),
+        "short_repeat_padded": bool(short.shape[1] == cfg.prompt_frames and
+                                    (short[:, F:] == short[:, F - 1:F]).all()),
+    }
+    # the registry's RVQ calls at their own shapes, [1, 225] and [1, 15],
+    # on the voices' latents, against the plain version
+    codec = synth.codec_runner.codec
+    rvq_gap = 0.0
+    for name, frames in (("ann", PROMPT_FRAMES), ("cy", SHORT_VOICE_FRAMES)):
+        audio, sr = read_wav(os.path.join(spk, f"{name}.wav"))
+        audio = resample(audio, sr, SAMPLE_RATE)
+        audio = audio[None, :, 0] if audio.ndim == 2 else audio[None]
+        wav = torch.as_tensor(np.ascontiguousarray(audio), device="cuda")
+        with torch.no_grad(), full_f32():
+            emb = codec.encoder(wav[..., None]).contiguous()
+        checks[f"{name}_rvq_shape"] = tuple(emb.shape) == (1, frames, 128)
+        rvq_gap = max(rvq_gap, rvq_check(
+            smi, f"speaker {name} latents", emb,
+            codec.codebooks[:8].detach())["max_score_gap"])
+    launches = dict(startup)
+    per_request = {}
+    for i, name in enumerate(sorted(lengths)):
+        zero_counts()
+        status, data, _ = _http(port, "POST", "/synthesize",
+                                {"text": TEXTS[i], "speaker": name,
+                                 "seed": i})
+        torch.cuda.synchronize()
+        got = counts()
+        per_request[name] = got
+        for k in KERNELS:
+            launches[k] += got[k]
+        prompts = np.stack([speakers[name]] + [np.zeros_like(short)]
+                           * (N_REQUESTS - 1))
+        ref = synth.synthesize([TEXTS[i]] + [""] * (N_REQUESTS - 1), seed=i,
+                               pcm16=True, prompt_codes=prompts)[0]
+        checks[f"{name}_bits"] = status == 200 and _wav_pcm(data) == _bits(
+            ref)
+    status, _, _ = _http(port, "POST", "/synthesize",
+                         {"text": TEXTS[0], "speaker": "nobody"})
+    checks["unknown_speaker_400"] = status == 400
+    status, body, _ = _http(port, "GET", "/speakers")
+    checks["speakers_listed"] = json.loads(body) == sorted(lengths)
+    _stop_server(server, thread)
+    for k in KERNELS:
+        path[k] = launches[k]
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit({"phase": "prompt_serve", "what": "cli.serve "
+          f"ModelConfig(prompt_conditioning=True) in process, DPM-"
+          f"{PROMPT_STEPS} CFG {GUIDANCE}, --max_batch {N_REQUESTS}, "
+          f"--speakers of {len(lengths)} wavs at {ENCODE_SR} Hz "
+          f"({', '.join(f'{s:g} s' for s in lengths.values())})",
+          "checks": checks, "startup_s": server.startup,
+          "startup_launches": startup, "request_launches": per_request,
+          "path_launches": path, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"prompt serve checks failed: {checks}")
+    del server, synth
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path, rvq_gap
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2494,6 +3120,8 @@ def main():
     synth = phase_slice(smi)
     with tempfile.TemporaryDirectory() as tmp:
         prompt, other, prompt_rvq_res = phase_prompt_slice(smi, tmp)
+        served, long_cli = phase_serve(smi, tmp)
+        prompt_served, serve_rvq_gap = phase_prompt_serve(smi, tmp)
     with full_f32():
         phase_small(smi)
         phase_prompt_small(smi)
@@ -2509,7 +3137,7 @@ def main():
                                       ckpt)
     rvq["differ"]["prompt_latents"] = prompt_rvq_res["differ"]
     rvq["max_abs_err"] = max(rvq["max_abs_err"],
-                             prompt_rvq_res["max_score_gap"])
+                             prompt_rvq_res["max_score_gap"], serve_rvq_gap)
     with full_f32():
         bwd, fwd["train_shapes"] = phase_attention_bwd(smi, batch)
         bwd["prompt_train_shapes"] = phase_prompt_attention_bwd(smi, batch)
@@ -2518,7 +3146,9 @@ def main():
     paths = {k: {"synthesize": synth[k], "prompt_synthesize": prompt[k],
                  "codec_other_lstm_schedule": other[k], "train": train[k],
                  "encode": encode[k], "prompt_train": prompt_train[k],
-                 "ckpt_synthesize": ckpt_synth[k]} for k in KERNELS}
+                 "ckpt_synthesize": ckpt_synth[k], "serve": served[k],
+                 "synthesize_long": long_cli[k],
+                 "prompt_serve": prompt_served[k]} for k in KERNELS}
     launches = {k: sum(p.values()) for k, p in paths.items()}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the paths never ran: {launches}")

@@ -9,14 +9,17 @@ config it was trained under) or from a reference-repo ``ckpt_N.pt``
 (``--ref_ckpt``); the codec's from a port codec state dict
 (``--codec_params``, as ``cli.convert_codec`` writes it).  What is not
 given is random, drawn from seeded generators, and the output is noise.
-Not ported yet: ``--long``, ``--crossfade_ms``, ``--continuity_prompt``,
-``--tp`` and ``--sp``.
+``--long`` takes one ``--text`` of any length, synthesizes it window by
+window (``Synthesizer.synthesize_long``) and writes one wav.  Not ported
+yet: ``--tp`` and ``--sp``.
 
   python -m prompt_tts_tpu_torch.cli.synthesize --text "Hello." --out x.wav \
       --ckpt_dir ckpt --ema --codec_params codec.pt
   python -m prompt_tts_tpu_torch.cli.synthesize --text "Hello." --out x.wav \
       --config_file prompt.json --ckpt_dir ckpt --codec_params codec.pt \
       --prompt_wav voice.wav --sampler dpm --steps 25 --guidance_scale 3
+  python -m prompt_tts_tpu_torch.cli.synthesize --long --crossfade_ms 20 \
+      --text "A passage of several sentences. ..." --out long.wav
 """
 
 import argparse
@@ -72,6 +75,18 @@ def parse_args(argv=None):
     p.add_argument("--trim", action="store_true",
                    help="Trim trailing silence (energy-based; the model "
                         "always generates the full padded duration).")
+    p.add_argument("--long", action="store_true",
+                   help="Long-form mode: split the (single) --text into "
+                        "sentence-packed chunks, synthesize in batches, "
+                        "trim each chunk, concatenate into one wav.")
+    p.add_argument("--crossfade_ms", type=float, default=0.0,
+                   help="Long-form seam treatment: equal-power crossfade "
+                        "of this many milliseconds at every window join "
+                        "(0 = hard concatenation).")
+    p.add_argument("--continuity_prompt", action="store_true",
+                   help="Long-form, prompt-conditioned family only: "
+                        "condition each window on the previous window's "
+                        "generated tail codes (sequential windows).")
     return p.parse_args(argv)
 
 
@@ -91,10 +106,12 @@ def _texts(args):
 
 def main(argv=None):
     """Write one wav per text; returns ``(paths, wavs, codes)`` (the wavs
-    before ``--trim``)."""
+    before ``--trim``; with ``--long`` one joined wav and no codes)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     texts = _texts(args)
+    if args.long and len(texts) != 1:
+        raise SystemExit("--long takes exactly one --text")
     if args.ema and not args.ckpt_dir:
         raise SystemExit("--ema requires --ckpt_dir (EMA params live in "
                          "checkpoints produced by train --ema_decay)")
@@ -144,6 +161,17 @@ def main(argv=None):
             audio = resample(audio, sr, SAMPLE_RATE)
         prompt_wav = np.tile(audio[None, :, 0], (len(texts), 1))
     t0 = time.perf_counter()
+    if args.long:
+        wav = synth.synthesize_long(texts[0], seed=args.seed,
+                                    prompt_wav=prompt_wav,
+                                    crossfade_ms=args.crossfade_ms,
+                                    continuity_prompt=args.continuity_prompt)
+        write_wav(args.out, wav, SAMPLE_RATE)
+        logging.info("wrote %s (%.2f s, %d chunks) in %.3f s", args.out,
+                     len(wav) / SAMPLE_RATE,
+                     len(synth.split_long_text(texts[0])),
+                     time.perf_counter() - t0)
+        return [args.out], [wav], None
     wavs, codes = synth.synthesize(texts, seed=args.seed,
                                    return_codes=True, prompt_wav=prompt_wav)
     logging.info("synthesized %d utterance(s) in %.3f s", len(wavs),

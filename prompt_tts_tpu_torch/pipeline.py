@@ -5,15 +5,21 @@ Port of ``prompt_tts_tpu/pipeline.py``: both model families (the
 single-speaker ``TTSSingleSpeaker`` and the prompt-conditioned
 ``TTSPromptSpeaker``, chosen by ``config.model.prompt_conditioning``), the
 DDIM and DPM-Solver++(2M) samplers, and classifier-free guidance for both
-families.  Code normalization contract: model latents live in [-1, 1] via
-``c * 2/1023 - 1``; synthesis inverts with round + clip before the codec
-decode.
+families; synthesis in one call, dispatched without a host pull
+(``synthesize_async``), streamed by growing code prefixes
+(``synthesize_stream``), and long-form over several windows
+(``synthesize_long``, ``synthesize_long_stream``).  Code normalization
+contract: model latents live in [-1, 1] via ``c * 2/1023 - 1``; synthesis
+inverts with round + clip before the codec decode.
 """
 
 import contextlib
 import math
+import re
+import threading
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -53,23 +59,44 @@ def wav_to_pcm16(wav: torch.Tensor) -> torch.Tensor:
     return torch.round(wav * 32767.0).clamp(-32768.0, 32767.0).to(torch.int16)
 
 
+# full_f32's process-wide scope: how many entries are open, and the flags
+# saved at the first of them
+_f32_lock = threading.Lock()
+_f32_scope = {"depth": 0, "saved": None}
+
+
 @contextlib.contextmanager
 def full_f32():
     """Run f32 convolutions and matmuls in full f32, not TF32.
 
     cuDNN convolutions default to TF32 on the card (about three decimal
-    digits), which would miss the codec's 1e-5 decode contract; the flags
-    are restored on exit.
+    digits), which would miss the codec's 1e-5 decode contract.  The flags
+    are process-global, so the scope is too: they go off at the first
+    entry from any thread and come back at the last exit, and a thread
+    still inside never has them restored under it.  A thread outside the
+    scope may meanwhile compute without TF32: only more exact.
     """
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    with _f32_lock:
+        if _f32_scope["depth"] == 0:
+            _f32_scope["saved"] = (torch.backends.cudnn.allow_tf32,
+                                   torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _f32_scope["depth"] += 1
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
+        with _f32_lock:
+            _f32_scope["depth"] -= 1
+            if _f32_scope["depth"] == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _f32_scope["saved"]
+
+
+def stream_scope(stream):
+    """A scope that puts torch's work on ``stream`` (None: the CPU)."""
+    return (contextlib.nullcontext() if stream is None
+            else torch.cuda.stream(stream))
 
 
 @torch.no_grad()
@@ -158,6 +185,9 @@ class Synthesizer:
     concatenated on the batch axis.  A prompt-conditioned config
     (``prompt_conditioning``) builds ``TTSPromptSpeaker``, which takes a
     voice prompt per request.
+
+    On the card a call's device work goes on the caller's current stream:
+    several threads may call at once, each on a stream of its own.
     """
 
     def __init__(self, config: Optional[Config] = None, device="cuda",
@@ -188,6 +218,31 @@ class Synthesizer:
         self.schedule = linear_schedule(
             self.config.train.num_train_timesteps, device=self.device)
         self.tokenizer = Tokenizer(max_len=mcfg.cmu_seq_len)
+
+    def _stream(self):
+        """The caller's current stream, where a call's device work goes
+        (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.current_stream(self.device)
+
+    def _upload(self, x) -> torch.Tensor:
+        """A host array on the device.  On the card it goes through pinned
+        memory without a wait: a copy from pageable memory would
+        synchronise the stream with the work already queued on it."""
+        t = torch.as_tensor(x)
+        if self.device.type != "cuda" or t.device.type != "cpu":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def noise(self, seed: int, batch: int) -> torch.Tensor:
+        """x_T ``[batch, sample_size, in_channels]`` for ``seed``, drawn on
+        a CPU generator, so one seed gives the same x_T on every device.
+        Every entry point draws its noise here."""
+        mcfg = self.config.model
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn((batch, mcfg.sample_size, mcfg.in_channels),
+                           generator=g)
 
     def _condition(self, ids, mask, prompt):
         """(context, speaker_emb or None) for ids/mask (and the prompt
@@ -253,13 +308,53 @@ class Synthesizer:
                 raise ValueError("the prompt-conditioned model needs "
                                  "prompt_wav or prompt_codes")
             prompt_codes = self.codec_runner.encode(prompt_wav)
-        lat = codes_to_latents(torch.as_tensor(prompt_codes,
-                                               device=self.device))
+        lat = codes_to_latents(self._upload(prompt_codes))
         Tp = self.config.model.prompt_frames
         fixed = lat.new_zeros(lat.shape[0], Tp, lat.shape[2])
         n = min(Tp, lat.shape[1])
         fixed[:, :n] = lat[:, :n]
         return fixed
+
+    def _codes(self, texts, seed, x_T, prompt_wav, prompt_codes
+               ) -> torch.Tensor:
+        """Tokenize, draw x_T (unless given), denoise and round: int codes
+        ``[B, n_q, frames]`` on the device, on the current stream."""
+        ids, mask = self.tokenizer.encode_batch(list(texts))
+        prompt = (self.prompt_latents(prompt_wav, prompt_codes)
+                  if self.prompted else None)
+        if x_T is None:
+            x_T = self.noise(seed, len(texts))
+        latents = self.denoise_latents(self._upload(x_T), self._upload(ids),
+                                       self._upload(mask), prompt)
+        return latents_to_codes(latents)
+
+    @torch.no_grad()
+    def _dispatch(self, texts, seed, x_T, prompt_wav, prompt_codes, pcm16):
+        """Enqueue the whole program on the current stream: ``(wav, codes,
+        event)`` on the device, the event (None on the CPU) recorded after
+        the last kernel."""
+        codes = self._codes(texts, seed, x_T, prompt_wav, prompt_codes)
+        wav = self.codec_runner.decode(codes)
+        if pcm16:
+            wav = wav_to_pcm16(wav)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return wav, codes, event
+
+    def synthesize_async(self, texts: Sequence[str], seed: int = 0,
+                         prompt_wav=None, prompt_codes=None,
+                         pcm16: bool = False):
+        """Enqueue synthesis without a host pull: ``(wav, event)``, the wav
+        ``[B, frames*320]`` on the device (int16 PCM quantized there with
+        ``pcm16=True``) and a CUDA event recorded after its last kernel
+        (None on the CPU, where the call has finished).  Arguments as
+        :meth:`synthesize`.  Another thread may wait on the event and then
+        copy the wav out."""
+        wav, _, event = self._dispatch(texts, seed, None, prompt_wav,
+                                       prompt_codes, pcm16)
+        return wav, event
 
     @torch.no_grad()
     def synthesize(self, texts: Sequence[str], seed: int = 0,
@@ -269,28 +364,230 @@ class Synthesizer:
         """texts -> f32 wav ``[B, frames*320]`` at 24 kHz as numpy (int16
         PCM with ``pcm16=True``); with ``return_codes`` also the codes
         ``[B, n_q, frames]``.  ``x_T`` ``[B, frames, n_q]`` replaces the
-        noise drawn from ``seed`` (on a CPU generator, so one seed gives the
-        same x_T on every device).  The prompt family takes ``prompt_wav``
-        ``[B, samples]`` @ 24 kHz or ``prompt_codes`` ``[B, n_q, Tp]``."""
-        mcfg = self.config.model
-        ids, mask = self.tokenizer.encode_batch(list(texts))
-        ids = torch.as_tensor(ids, device=self.device)
-        mask = torch.as_tensor(mask, device=self.device)
-        prompt = (self.prompt_latents(prompt_wav, prompt_codes)
-                  if self.prompted else None)
-        if x_T is None:
-            g = torch.Generator().manual_seed(seed)
-            x_T = torch.randn((len(texts), mcfg.sample_size, mcfg.in_channels),
-                              generator=g)
-        latents = self.denoise_latents(x_T.to(self.device), ids, mask, prompt)
-        codes = latents_to_codes(latents)
-        wav = self.codec_runner.decode(codes)
-        if pcm16:
-            wav = wav_to_pcm16(wav)
+        noise drawn from ``seed`` (:meth:`noise`).  The prompt family takes
+        ``prompt_wav`` ``[B, samples]`` @ 24 kHz or ``prompt_codes``
+        ``[B, n_q, Tp]``.  The same program as :meth:`synthesize_async`,
+        then the pull."""
+        wav, codes, event = self._dispatch(texts, seed, x_T, prompt_wav,
+                                           prompt_codes, pcm16)
+        if event is not None:
+            event.synchronize()
         wav = wav.cpu().numpy()
         if return_codes:
             return wav, codes.cpu().numpy()
         return wav
+
+    def synthesize_stream(self, texts: Sequence[str], seed: int = 0,
+                          chunk_frames: int = 300, prompt_wav=None,
+                          prompt_codes=None, pcm16: bool = False):
+        """Yield wav chunks ``[B, chunk*320]`` as host numpy, f32 (int16
+        PCM with ``pcm16=True``), as they decode.
+
+        The codes are denoised once; then each growing prefix
+        ``codes[:, :, :end]`` is decoded and its new samples yielded.  The
+        SEANet decoder is causal, so a prefix's decode is the prefix of the
+        full decode, and the first audio leaves after one prefix decode
+        instead of the whole window's."""
+        # a generator runs on whichever stream its consumer has current:
+        # hold every step to the stream of the first
+        stream = self._stream()
+        with stream_scope(stream):
+            codes = self._codes(texts, seed, None, prompt_wav, prompt_codes)
+        yield from self._decode_stream(codes, chunk_frames, pcm16, stream)
+
+    def _decode_stream(self, codes, chunk_frames, pcm16, stream=None):
+        """The prefix decodes of :meth:`synthesize_stream` for int codes
+        ``[B, n_q, T]``, on ``stream``."""
+        T = codes.shape[-1]
+        bounds = list(range(chunk_frames, T, chunk_frames)) + [T]
+        prev = 0
+        for end in bounds:
+            with stream_scope(stream):
+                wav = self.codec_runner.decode(
+                    codes[:, :, :end].contiguous())[:, prev * 320:end * 320]
+                if pcm16:
+                    wav = wav_to_pcm16(wav)
+                wav = wav.cpu().numpy()
+            yield wav
+            prev = end
+
+    def split_long_text(self, text: str) -> list:
+        """Split ``text`` into chunks whose token sequences fit the model.
+
+        Sentences (split on ``.!?;`` + whitespace) are greedily packed up
+        to ``cmu_seq_len`` tokens; a single overlong sentence is hard-split
+        on word boundaries."""
+        limit = self.config.model.cmu_seq_len
+        sentences = [s for s in re.split(r"(?<=[.!?;])\s+", text.strip())
+                     if s]
+
+        def n_tokens(t: str) -> int:
+            return len(self.tokenizer.ids(t))
+
+        # hard-split any single sentence that alone exceeds the limit
+        units: list = []
+        for s in sentences:
+            if n_tokens(s) <= limit:
+                units.append(s)
+                continue
+            cur = ""
+            for w in s.split():
+                cand = (cur + " " + w).strip()
+                if cur and n_tokens(cand) > limit:
+                    units.append(cur)
+                    cur = w
+                else:
+                    cur = cand
+            if cur:
+                units.append(cur)
+
+        chunks: list = []
+        cur = ""
+        for u in units:
+            cand = (cur + " " + u).strip()
+            if cur and n_tokens(cand) > limit:
+                chunks.append(cur)
+                cur = u
+            else:
+                cur = cand
+        if cur:
+            chunks.append(cur)
+        return chunks or [""]
+
+    def _continuity_tail(self, codes: np.ndarray, wav_len: int):
+        """The last ``prompt_frames`` spoken code frames of a window (codes
+        ``[n_q, T]``, ``wav_len`` its sample count after the trim): the
+        next window's continuity prompt ``[1, n_q, <= prompt_frames]``."""
+        Tp = self.config.model.prompt_frames
+        end = max(1, min(codes.shape[-1], -(-wav_len // 320)))
+        return codes[None, :, max(0, end - Tp): end]
+
+    def synthesize_long(self, text: str, seed: int = 0, max_batch: int = 8,
+                        trim_threshold_db: Optional[float] = -40.0,
+                        prompt_wav=None, prompt_codes=None,
+                        pcm16: bool = False, pad_groups: bool = False,
+                        crossfade_ms: float = 0.0,
+                        continuity_prompt: bool = False) -> np.ndarray:
+        """Long-form synthesis: split -> synthesize in groups of
+        ``max_batch`` windows -> trim each -> join, as host numpy.
+
+        Group k, which starts at chunk i, draws its noise from ``seed + i``;
+        a trailing partial group is padded to ``max_batch`` with empty
+        texts when there is more than one group or with ``pad_groups``
+        (a server keeps to the batch size it warmed up).  Trailing silence
+        is trimmed per window (``trim_threshold_db``; None keeps whole
+        windows), and ``crossfade_ms > 0`` joins the windows with an
+        equal-power crossfade.  ``continuity_prompt`` (prompt family only)
+        runs the windows one by one, window i from ``seed + i``, each
+        prompted by the previous window's spoken tail codes; the user's
+        prompt conditions the first."""
+        from prompt_tts_tpu_torch.utils.wav import (
+            crossfade_join, trim_trailing_silence,
+        )
+        if continuity_prompt and not self.prompted:
+            raise ValueError("continuity_prompt needs the prompt-"
+                             "conditioned model family")
+        chunks = self.split_long_text(text)
+        pieces = []
+        if continuity_prompt:
+            prev_tail = None
+            for i, chunk in enumerate(chunks):
+                group = [chunk]
+                if pad_groups:
+                    group = group + [""] * (max_batch - 1)
+                if prev_tail is None:
+                    kw = dict(prompt_wav=_repeat(prompt_wav, len(group)),
+                              prompt_codes=_repeat(prompt_codes, len(group)))
+                else:
+                    kw = dict(prompt_codes=np.repeat(prev_tail, len(group),
+                                                     0))
+                wavs, codes = self.synthesize(group, seed=seed + i,
+                                              pcm16=pcm16,
+                                              return_codes=True, **kw)
+                wav = wavs[0]
+                if trim_threshold_db is not None:
+                    wav = trim_trailing_silence(
+                        wav, threshold_db=trim_threshold_db)
+                prev_tail = self._continuity_tail(codes[0], len(wav))
+                pieces.append(wav)
+        else:
+            for i in range(0, len(chunks), max_batch):
+                group = chunks[i:i + max_batch]
+                n_real = len(group)
+                if ((pad_groups or len(chunks) > max_batch)
+                        and n_real < max_batch):
+                    group = group + [""] * (max_batch - n_real)
+                kw = {}
+                if self.prompted:
+                    kw = dict(prompt_wav=_repeat(prompt_wav, len(group)),
+                              prompt_codes=_repeat(prompt_codes, len(group)))
+                wavs = self.synthesize(group, seed=seed + i, pcm16=pcm16,
+                                       **kw)[:n_real]
+                for wav in wavs:
+                    if trim_threshold_db is not None:
+                        wav = trim_trailing_silence(
+                            wav, threshold_db=trim_threshold_db)
+                    pieces.append(wav)
+        if not pieces:
+            return np.zeros(0, dtype=np.int16 if pcm16 else np.float32)
+        if crossfade_ms > 0.0:
+            return crossfade_join(pieces, int(crossfade_ms * 24))
+        return np.concatenate(pieces)
+
+    def synthesize_long_stream(self, text: str, seed: int = 0,
+                               trim_threshold_db: Optional[float] = -40.0,
+                               prompt_wav=None, prompt_codes=None,
+                               pcm16: bool = False, crossfade_ms: float = 0.0,
+                               continuity_prompt: bool = False):
+        """Yield one trimmed wav piece per window of a long text, as host
+        numpy.
+
+        Window i is synthesized at batch 1 from ``seed + i`` (through
+        :meth:`synthesize_stream` with one chunk, or :meth:`synthesize`
+        under ``continuity_prompt``) and yielded as soon as it is trimmed.
+        With ``crossfade_ms > 0`` each piece's overlap tail is held back
+        until the next window arrives and the last is yielded at the end,
+        so the concatenated stream is :meth:`synthesize_long`'s crossfaded
+        wav at ``max_batch=1``."""
+        from prompt_tts_tpu_torch.utils.wav import (
+            crossfade_join, trim_trailing_silence,
+        )
+        if continuity_prompt and not self.prompted:
+            raise ValueError("continuity_prompt needs the prompt-"
+                             "conditioned model family")
+        T = self.config.model.sample_size
+        n_fade = int(crossfade_ms * 24) if crossfade_ms > 0 else 0
+        kw = {}
+        if self.prompted:
+            kw = dict(prompt_wav=prompt_wav, prompt_codes=prompt_codes)
+        held = None  # the previous piece's held-back crossfade tail
+        for i, chunk in enumerate(self.split_long_text(text)):
+            if continuity_prompt:
+                wavs, codes = self.synthesize([chunk], seed=seed + i,
+                                              pcm16=pcm16,
+                                              return_codes=True, **kw)
+                wav = wavs[0]
+            else:
+                pieces = list(self.synthesize_stream(
+                    [chunk], seed=seed + i, chunk_frames=T, pcm16=pcm16,
+                    **kw))
+                wav = np.concatenate(pieces, axis=1)[0]
+            if trim_threshold_db is not None:
+                wav = trim_trailing_silence(
+                    wav, threshold_db=trim_threshold_db)
+            if continuity_prompt:
+                kw = dict(prompt_codes=self._continuity_tail(
+                    codes[0], len(wav)))
+            if n_fade > 0:
+                if held is not None:
+                    wav = crossfade_join([held, wav], n_fade)
+                k = min(n_fade, len(wav))
+                held, wav = wav[len(wav) - k:], wav[: len(wav) - k]
+                if len(wav) == 0:
+                    continue
+            yield wav
+        if held is not None and len(held):
+            yield held
 
     def decode_codes(self, codes) -> torch.Tensor:
         """int codes ``[B, n_q, T]`` -> wav (the decode_codec tool path)."""
@@ -300,3 +597,9 @@ class Synthesizer:
         """wav ``[B, T]`` @ 24 kHz -> int codes ``[B, 8, ceil(T/320)]``
         (6 kbps)."""
         return self.codec_runner.encode(wav)
+
+
+def _repeat(a, n: int):
+    """The first row of a prompt array repeated ``n`` times (None stays
+    None)."""
+    return None if a is None else np.repeat(np.asarray(a)[:1], n, 0)

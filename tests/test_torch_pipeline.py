@@ -208,6 +208,7 @@ def test_port_runs_without_jax(tmp_path, tiny_config):
         "from prompt_tts_tpu_torch.cli.synthesize import main\n"
         "from prompt_tts_tpu_torch.cli.train import main as train\n"
         "from prompt_tts_tpu_torch.cli.generate_codes import main as encode\n"
+        "import prompt_tts_tpu_torch.cli.serve\n"
         f"main(['--text', 'a b', '--out', {str(tmp_path / 'y.wav')!r},"
         f" '--steps', '1', '--device', 'cpu', '--dtype', 'bf16',"
         f" '--config_file', {tiny_config!r}])\n"
@@ -238,6 +239,7 @@ def test_port_sources_import_no_jax():
     files = sorted((root / "prompt_tts_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
     assert len(files) > 30
+    assert root / "prompt_tts_tpu_torch" / "cli" / "serve.py" in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
