@@ -105,22 +105,47 @@ Phases, each printed as one JSON object per line:
   10. the attention backward at the prompt family's training shapes, f32
      and bf16 against its plain version, twice for the same bits, then
      timed beside SDPA's backward with its bound.
+  11. remat_train: the flagship's bf16 train step at the train slice's
+     batch with the text encoder's dropout on, without and with remat from
+     the same weights and generator states: the loss and every gradient
+     bit for bit, kernel #1 launched twice as often under remat; then
+     whole steps in turns: wall and peak memory.
+  12. train_cli_extras: ``cli.train --streaming --remat --profile_steps 2``
+     (bf16, batch 16, one epoch) against the in-RAM plain run: the
+     streamed batches and the losses bit-equal, the native reader loaded,
+     the Chrome trace naming both attention kernels.
+  13. evaluate: ``cli.evaluate`` (f32, 2 batches, the 5-point grid) on the
+     flagship's checkpoint twice and the prompt family's EMA twice and raw
+     once: the same JSON twice, the EMA apart; one batch's wall.
+  14. export: ``cli.export_checkpoint`` of the flagship's checkpoint, read
+     back bit for bit, then ``cli.synthesize --ref_ckpt`` against an
+     in-process ``Synthesizer`` on the checkpoint's state, bit for bit.
+  15. ddpm: ``ddpm_sample`` with the flagship denoiser, 4 requests, bf16,
+     1,000 steps and the decode (ms a step, x real time, the idle share
+     over a 100-step schedule); a tiny config in f32 on the card against
+     the CPU with injected noise.
+  16. profile: ``cli.profile --stages cond,denoise,decode,train,synth
+     --time`` at full width (its table printed), and a tiny config's FLOPs
+     on the card against the CPU.
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises (non-zero exit); without CUDA it exits non-zero
 before any result.
 
     python3 chip_smoke.py --lstm-times --rvq-times --resnet-times \
-        --resnet-tiles --synth-times
+        --resnet-tiles --synth-times --remat-times
 
 runs timings alone, any of them, after the build: both LSTM kernels at the
 paths' three shapes beside cuDNN, the RVQ encode at [32, 900], [4, 225]
 and [1, 225] beside the cdist sequence with both of its bounds (f32 on the
 CUDA cores, 3 x TF32 on the tensor cores), the resnet kernel at every
 block shape (per launch, the library sequence, the wrapper's host cost),
-its tile shapes at B=8 and B=1, and the two synthesis slices' warm walls
-with a profile.  ``--lstm-times``, ``--rvq-times``, ``--resnet-times`` and
-``--synth-times`` use only what earlier versions of the package have too,
-so that two checkouts can be timed in one call.
+its tile shapes at B=8 and B=1, the two synthesis slices' warm walls
+with a profile, and the flagship train step plain, under the port's remat
+and under two renderings of JAX's remat policy.  ``--lstm-times``,
+``--resnet-times`` and ``--synth-times`` use only what earlier versions of
+the package have too, so that two checkouts can be timed in one call
+(``--rvq-times`` needs ``ops/cuda/opcount.py``, which came with the
+trainer's remat).
 """
 
 import contextlib
@@ -506,6 +531,7 @@ def phase_attention_fwd(smi):
     from prompt_tts_tpu_torch.ops.attention import (
         attention_plain, flash_attention_plain,
     )
+    from prompt_tts_tpu_torch.ops.cuda import opcount
     from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
     g = torch.Generator("cuda").manual_seed(0)
     B = N_REQUESTS
@@ -525,7 +551,7 @@ def phase_attention_fwd(smi):
                 plain_ms = cuda_ms(lambda: plain(q, k, v, bias), 20)
                 lib_ms = cuda_ms(lambda: sdpa(q, k, v, bias), 20)
                 size = q.element_size()
-                flop = 4 * B * H * Tq * Tk * D
+                flop = opcount.attention_fwd(B, Tq, Tk, H, D)
                 exps = B * H * Tq * Tk
                 nbytes = size * 2 * B * H * D * (Tq + Tk) + (
                     0 if bias is None else 4 * B * Tk)
@@ -773,6 +799,7 @@ def _bwd_case_times(g, B, Tq, Tk, H, D, masked):
         attention_bwd_plain, flash_attention_plain,
     )
     from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
+    from prompt_tts_tpu_torch.ops.cuda import opcount
     from prompt_tts_tpu_torch.ops.cuda.attention_bwd import attention_bwd
     q, k, v, bias = attn_inputs(g, B, Tq, Tk, H, D, masked, torch.bfloat16)
     do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
@@ -796,7 +823,7 @@ def _bwd_case_times(g, B, Tq, Tk, H, D, masked):
         out, leaves, do, retain_graph=True), 10)
     size = q.element_size()
     # recomputed scores, dv, dp, dq, dk: five [Tq,Tk,D] products
-    flop = 10 * B * H * Tq * Tk * D
+    flop = opcount.attention_bwd(B, Tq, Tk, H, D)
     # p is recomputed in each of the two passes
     exps = 2 * B * H * Tq * Tk
     # q, o, do in and dq out; k, v in and dk, dv out; the f32 lse in;
@@ -804,7 +831,7 @@ def _bwd_case_times(g, B, Tq, Tk, H, D, masked):
     nbytes = (size * 4 * B * H * D * (Tq + Tk) + 4 * B * H * Tq
               + (8 * B * Tk if masked else 0))
     # the forward with the lse: q, k, v in, o and the f32 lse out
-    fwd_flop = 4 * B * H * Tq * Tk * D
+    fwd_flop = opcount.attention_fwd(B, Tq, Tk, H, D)
     fwd_exps = B * H * Tq * Tk
     fwd_bytes = (size * 2 * B * H * D * (Tq + Tk) + 4 * B * H * Tq
                  + (4 * B * Tk if masked else 0))
@@ -916,6 +943,7 @@ def _lstm_case(smi, T, B, g):
     one on w_hh_t [4H,H], the same weights) against their plain versions,
     twice for the same bits, timed beside cuDNN.  Returns a row for each."""
     import torch
+    from prompt_tts_tpu_torch.ops.cuda import opcount
     from prompt_tts_tpu_torch.ops.cuda.lstm import (
         lstm_plan, lstm_recurrence, lstm_recurrence_plain, lstm_recurrence_t,
         lstm_recurrence_t_plain, lstm_t_grid,
@@ -938,7 +966,7 @@ def _lstm_case(smi, T, B, g):
             ms = cuda_ms(lambda: fn(x, wt), 5)
             plain_ms = cuda_ms(lambda: plain(x, wt), 2)
             ok = bool(torch.isfinite(out).all()) and err <= LSTM_TOL and same
-            flop = T * B * (2 * H * 4 * H + 10 * H)
+            flop = opcount.lstm(T, B, H)
             nbytes = 4 * (T * B * 4 * H + H * 4 * H + T * B * H)
             b = bound(flop, nbytes, "float32")
             extra = lstm_plan(schedule, B, H)
@@ -1298,6 +1326,7 @@ def phase_resnet(smi):
     import torch
     import torch.nn.functional as F
     from prompt_tts_tpu_torch.config import ModelConfig
+    from prompt_tts_tpu_torch.ops.cuda import opcount
     from prompt_tts_tpu_torch.ops.cuda.resnet import (
         fused_resnet_block, fused_resnet_block_plain, resnet_tiles,
     )
@@ -1369,7 +1398,7 @@ def phase_resnet(smi):
                             lambda: resnet_sequence(block, xc, tp), 10)})
                     w = 3 * cin * cout + 3 * cout * cout + (
                         cin * cout if cin != cout else 0)
-                    rec.update(bound(2 * B * T * w,
+                    rec.update(bound(opcount.resnet_block(B, T, cin, cout),
                                      2 * (B * T * (cin + cout) + w),
                                      dname))
             emit({"phase": "kernel", "kernel": "resnet",
@@ -1796,7 +1825,8 @@ def rvq_bounds(N, n_q, K, D=128):
     """The least time of one RVQ encode of N vectors: its operations in f32
     on the CUDA cores (the kernel before 3 x TF32), and the three TF32
     products the kernel runs on the tensor cores, each beside the bytes."""
-    flop = 2 * N * n_q * K * D
+    from prompt_tts_tpu_torch.ops.cuda import opcount
+    flop = opcount.rvq_encode(N, n_q, K, D)
     nbytes = 4 * (N * D + n_q * K * D + N * n_q)
     return {"f32": bound(flop, nbytes, "float32"),
             "tf32x3": bound(3 * flop, nbytes, "tfloat32")}
@@ -3093,6 +3123,682 @@ def phase_prompt_serve(smi, tmp):
     return path, rvq_gap
 
 
+# a tiny config for the card-vs-CPU checks of the DDPM and profile phases:
+# tests/test_profile.py's, with the UNet's widths and heads set so that
+# every head dim is one the attention kernel takes (32 and 64; the test's
+# 32 channels over 4 heads give 8)
+TINY = dict(block_out_channels=(64, 64, 128, 128), cross_attention_dim=64,
+            attention_head_dim=32, text_encoder_layers=1, cmu_seq_len=64,
+            sample_size=40, layers_per_block=1, unet_num_heads=2,
+            text_encoder_dropout=0.0)
+# DDPM, tiny config, f32 card vs CPU over the same weights, x_T and noise:
+# the model-level contract through the 1,000 steps; a code may differ only
+# where the latent is this close to a rounding boundary
+DDPM_TOL = 5e-4
+# cli.profile's FLOPs of one stage, card (FlopCounterMode + the kernels'
+# formulas) against CPU (FlopCounterMode alone): relative
+PROFILE_FLOP_RTOL = 1e-2
+# the streaming / remat / profiled train CLI run: 4 steps an epoch on the
+# encode slice's 64 utterances, so the trace (steps 2 .. 4) fits one epoch
+EXTRAS_BATCH = 16
+
+
+def _last_json(fn, argv):
+    """Run a CLI's ``main(argv)`` with its standard output captured: (its
+    return value, the JSON of its last line, the lines before)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(argv)
+    lines = buf.getvalue().strip().splitlines()
+    return ret, json.loads(lines[-1]), lines[:-1]
+
+
+def phase_remat_train(smi, tar, batch):
+    """The flagship train step at ``ModelConfig()``, bf16 over f32, batch
+    ``batch`` of the encode slice's tar, the text encoder's dropout on:
+    the loss and backward without and with remat from the same weights and
+    generator states must give the same bits, and kernel #1 launches twice
+    as often under remat (the recompute runs it again).  Then whole steps
+    (clip and AdamW included) in turns, plain, remat, remat, plain: wall
+    and peak memory.  Returns the launches of the two checked steps."""
+    import torch
+    from prompt_tts_tpu_torch.config import Config
+    from prompt_tts_tpu_torch.data.dataset import CodeDataset
+    from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
+    from prompt_tts_tpu_torch.models.layers import set_compute_dtype_
+    from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
+    from prompt_tts_tpu_torch.ops.cuda.attention_bwd import LAUNCHES_PER_CALL
+    from prompt_tts_tpu_torch.pipeline import random_init_
+    from prompt_tts_tpu_torch.train.state import TrainState
+    from prompt_tts_tpu_torch.train.step import make_loss_fn, make_train_step
+    cfg = Config()
+    dev = torch.device("cuda")
+    model = TTSSingleSpeaker(cfg.model, device=dev)
+    random_init_(model, torch.Generator().manual_seed(cfg.train.seed))
+    set_compute_dtype_(model, torch.bfloat16)
+    model.train()
+    sched = linear_schedule(cfg.train.num_train_timesteps, device=dev)
+    host = next(CodeDataset(tar).batches(batch, shuffle=True, seed=0))
+    dev_batch = {k: torch.from_numpy(host[k]).to(dev)
+                 for k in ("codes", "text_ids", "text_mask")}
+    launches, loss, ref = {}, {}, None
+    grads_equal, grad_gap = True, 0.0
+    for remat in (False, True):
+        loss_fn = make_loss_fn(model, sched, remat=remat)
+        model.zero_grad(set_to_none=True)
+        torch.manual_seed(11)       # dropout: the device's default generator
+        gen = torch.Generator(dev).manual_seed(3)
+        torch.cuda.synchronize()
+        zero_counts()
+        out = loss_fn(dev_batch, gen)
+        out.backward()
+        torch.cuda.synchronize()
+        launches["remat" if remat else "plain"] = counts()
+        loss[remat] = out.detach().clone()
+        if ref is None:
+            ref = {n: p.grad.clone() for n, p in model.named_parameters()}
+            continue
+        for n, p in model.named_parameters():
+            if not torch.equal(p.grad, ref[n]):
+                grads_equal = False
+                grad_gap = max(grad_gap,
+                               (p.grad - ref[n]).abs().max().item())
+    del ref
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state = TrainState(model, cfg.train, 100)
+    steps = {r: make_train_step(state, sched, remat=r) for r in (False,
+                                                                 True)}
+    gen = torch.Generator(dev).manual_seed(5)
+    for r in (False, True):             # warm: the moments exist after
+        steps[r](dev_batch, gen)
+    torch.cuda.synchronize()
+    walls, peaks = {False: [], True: []}, {False: 0.0, True: 0.0}
+    for r in (False, True, True, False):
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            steps[r](dev_batch, gen)
+            torch.cuda.synchronize()
+            walls[r].append(time.perf_counter() - t0)
+            peaks[r] = max(peaks[r],
+                           torch.cuda.max_memory_allocated() / 2**30)
+    want = want_counts(attention_fwd=ATTN_CALLS,
+                       attention_bwd=LAUNCHES_PER_CALL * ATTN_CALLS)
+    checks = {
+        "loss_equal": bool(torch.equal(loss[False], loss[True])),
+        "grads_equal": grads_equal,
+        "finite": bool(torch.isfinite(loss[True])),
+        "launches_plain": launches["plain"] == want,
+        "launches_remat": launches["remat"] == dict(
+            want, attention_fwd=2 * ATTN_CALLS),
+    }
+    emit({"phase": "remat_train", "what": f"train step ModelConfig() bf16 "
+          f"B={batch}, dropout 0.1, without and with remat (each resnet "
+          f"block, spatial transformer and text layer a checkpoint region)",
+          "checks": checks, "loss": {"plain": loss[False].item(),
+                                     "remat": loss[True].item()},
+          "grad_max_abs_gap": grad_gap, "launches": launches,
+          "step_s": {"plain": walls[False], "remat": walls[True]},
+          "median_step_s": {"plain": statistics.median(walls[False]),
+                            "remat": statistics.median(walls[True])},
+          "peak_mem_gib": {"plain": peaks[False], "remat": peaks[True]},
+          "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"remat train checks failed: {checks}")
+    del steps, state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches["plain"][k] + launches["remat"][k] for k in KERNELS}
+
+
+def phase_train_cli_extras(smi, tar, tmp):
+    """``cli.train --streaming --remat --profile_steps 2`` at
+    ``ModelConfig()``, bf16, batch 16 (one epoch: 4 steps) on the encode
+    slice's tar, against the same CLI in RAM without remat or profile:
+    the streamed batches are the in-RAM ones, the native reader ran, the
+    losses are the same bits step for step, and the Chrome trace of steps
+    2-4 names both attention kernels.  Returns the launches of both runs."""
+    import glob
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.cli import train as cli
+    from prompt_tts_tpu_torch.config import Config
+    from prompt_tts_tpu_torch.data import native
+    from prompt_tts_tpu_torch.data.dataset import CodeDataset
+    from prompt_tts_tpu_torch.data.streaming import StreamingCodeDataset
+    from prompt_tts_tpu_torch.ops.cuda.attention_bwd import LAUNCHES_PER_CALL
+    B = EXTRAS_BATCH
+    seed = Config().train.seed          # the first epoch's shuffle seed
+    ram = list(CodeDataset(tar).batches(B, shuffle=True, seed=seed))
+    streamed = list(StreamingCodeDataset(tar).batches(B, shuffle=True,
+                                                      seed=seed))
+    batches_equal = len(ram) == len(streamed) == ENCODE_UTTERANCES // B and \
+        all(set(a) == set(b) and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+            for k in a) for a, b in zip(ram, streamed))
+    del ram, streamed
+    runs, launches, walls = {}, {}, {}
+    for name, extra in (("in_ram", []),
+                        ("streaming_remat_profiled",
+                         ["--streaming", "--remat", "--profile_steps", "2"])):
+        logs = os.path.join(tmp, f"extras_{name}")
+        argv = ["--data_file", tar, "--log_dir", logs, "--bf16",
+                "--batch_size", str(B), "--epochs", "1", "--log_every", "1",
+                "--device", "cuda"] + extra
+        torch.manual_seed(0)             # the text encoder's dropout
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = counts()
+        runs[name] = dict(
+            losses=_logged(logs, "Loss/train"), logs=logs,
+            streaming=isinstance(trainer.dataset, StreamingCodeDataset))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    prof = runs["streaming_remat_profiled"]
+    traces = glob.glob(os.path.join(prof["logs"], "trace", "*.json"))
+    kernels, steps_traced = set(), 0
+    if len(traces) == 1:
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        steps_traced = sum(e.get("name") == "train_step" and
+                           e.get("cat") == "user_annotation" for e in events)
+        del events
+    steps = ENCODE_UTTERANCES // B
+    per_step = want_counts(attention_fwd=ATTN_CALLS,
+                           attention_bwd=LAUNCHES_PER_CALL * ATTN_CALLS)
+    checks = {
+        "native_reader": native.available(),
+        "batches_equal_in_ram": batches_equal,
+        "streaming_dataset": prof["streaming"]
+        and not runs["in_ram"]["streaming"],
+        "losses_equal": runs["in_ram"]["losses"] == prof["losses"]
+        and sorted(prof["losses"]) == list(range(1, steps + 1)),
+        "trace_written": len(traces) == 1 and steps_traced == 2,
+        "trace_names_kernel_1": any("attn_fwd_tc" in k for k in kernels),
+        "trace_names_kernel_2": any("attn_bwd_dq_tc" in k for k in kernels)
+        and any("attn_bwd_dkv_tc" in k for k in kernels),
+        "launches_in_ram": launches["in_ram"] == {
+            k: v * steps for k, v in per_step.items()},
+        "launches_remat": launches["streaming_remat_profiled"] == dict(
+            {k: v * steps for k, v in per_step.items()},
+            attention_fwd=2 * ATTN_CALLS * steps),
+    }
+    emit({"phase": "train_cli_extras", "what": f"cli.train ModelConfig() "
+          f"--bf16 --batch_size {B} --epochs 1 --streaming --remat "
+          f"--profile_steps 2 against the same CLI in RAM",
+          "checks": checks, "loss": prof["losses"], "run_s": walls,
+          "launches": launches,
+          "trace_kernels": sorted(k[:60] for k in kernels
+                                  if "attn_" in k)[:8],
+          "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"train CLI extras checks failed: {checks}")
+    return {k: sum(v[k] for v in launches.values()) for k in KERNELS}
+
+
+def phase_evaluate(smi, tar, ckpt, prompt_ckpt, prompt_cfg, batch):
+    """``cli.evaluate`` at full width, f32, ``--max_batches 2`` and the
+    default 5-point grid, batch ``batch``: the flagship train slice's
+    checkpoint (raw) twice, the prompt train slice's (``--ema``) twice and
+    raw once.  Two runs give the same JSON, the EMA scores apart from the
+    parameters, the flagship run launches kernels #1 and #6 (f32) for 6
+    forwards a batch; then one batch's wall in process.  Returns the
+    launches of the CLI runs."""
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.cli import evaluate as cli
+    from prompt_tts_tpu_torch.cli._common import restore_model_state
+    from prompt_tts_tpu_torch.config import Config
+    from prompt_tts_tpu_torch.data.dataset import CodeDataset
+    from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
+    from prompt_tts_tpu_torch.models.layers import cast_compute_
+    from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
+    from prompt_tts_tpu_torch.pipeline import full_f32
+    from prompt_tts_tpu_torch.train.step import eval_generator
+    base = ["--data_file", tar, "--max_batches", "2", "--batch_size",
+            str(batch), "--device", "cuda"]
+    runs = {"flagship": base + ["--ckpt_dir", ckpt],
+            "prompt_ema": base + ["--ckpt_dir", prompt_ckpt, "--config_file",
+                                  prompt_cfg, "--ema"],
+            "prompt_raw": base + ["--ckpt_dir", prompt_ckpt,
+                                  "--config_file", prompt_cfg]}
+    results, launches, walls = {}, {}, {}
+    for name in ("flagship", "flagship", "prompt_ema", "prompt_ema",
+                 "prompt_raw"):
+        zero_counts()
+        t0 = time.perf_counter()
+        _, res, _ = _last_json(cli.main, runs[name])
+        torch.cuda.synchronize()
+        walls.setdefault(name, []).append(time.perf_counter() - t0)
+        got = counts()
+        launches[name] = {k: launches.get(name, {}).get(k, 0) + got[k]
+                          for k in KERNELS}
+        results.setdefault(name, []).append(res)
+        gc.collect()
+        torch.cuda.empty_cache()
+    n_res = len(resnet_shapes(Config().model))
+    forwards = 2 * 6                     # 2 batches x (eval + 5 grid points)
+    want = want_counts(attention_fwd=2 * forwards * ATTN_CALLS,
+                       resnet=2 * forwards * n_res)
+    fl, pe, pr = (results[k] for k in ("flagship", "prompt_ema",
+                                       "prompt_raw"))
+    checks = {
+        "flagship_deterministic": fl[0] == fl[1],
+        "prompt_ema_deterministic": pe[0] == pe[1],
+        "ema_differs_from_raw": pe[0]["eval_loss"] != pr[0]["eval_loss"],
+        "keys": set(fl[0]) == {"eval_loss", "num_batches", "batch_size",
+                               "step", "params", "timestep_profile"},
+        "batches": all(r[0]["num_batches"] == 2 for r in (fl, pe, pr)),
+        "finite": all(np.isfinite(r[0]["eval_loss"]) and all(
+            np.isfinite(v) for v in r[0]["timestep_profile"].values())
+            for r in (fl, pe, pr)),
+        "launches_flagship": launches["flagship"] == want,
+    }
+    # one batch (eval + the grid: 6 forwards) warm, in process
+    cfg = Config()
+    state, _ = restore_model_state(ckpt, cfg)
+    model = TTSSingleSpeaker(cfg.model, device="cuda")
+    model.load_state_dict(state, strict=True)
+    del state
+    cast_compute_(model.eval(), torch.float32)
+    sched = linear_schedule(device="cuda")
+    host = next(CodeDataset(tar).batches(batch))
+    dev_batch = {k: torch.from_numpy(host[k]).to("cuda")
+                 for k in ("codes", "text_ids", "text_mask")}
+    grid = [50, 250, 500, 750, 950]
+    batch_s = []
+    with full_f32():
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, at = cli.batch_losses(
+                model, sched, dev_batch, grid,
+                eval_generator(torch.device("cuda"), 0, 0))
+            float(loss), [float(a) for a in at]
+            batch_s.append(time.perf_counter() - t0)
+    attn = _attention_f32_times(batch)
+    emit({"phase": "evaluate", "what": f"cli.evaluate ModelConfig() f32 "
+          f"--batch_size {batch} --max_batches 2, grid 50..950: the flagship "
+          f"train slice's checkpoint, the prompt one's EMA and raw",
+          "checks": checks, "results": {k: v[0] for k, v in results.items()},
+          "cli_wall_s": walls, "launches": launches,
+          "want_launches_flagship": want,
+          "batch_wall_s": batch_s[1:], "note": "batch_wall_s: one batch's "
+          "6 f32 forwards (eval + 5 grid points), warm, in process",
+          "attention_f32": attn, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"evaluate checks failed: {checks}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: sum(v[k] for v in launches.values()) for k in KERNELS}
+
+
+def _attention_f32_times(B):
+    """Kernel #1's f32 path at the evaluate path's shapes (one forward's
+    36 calls at batch ``B``): the kernel, its plain version and SDPA by
+    CUDA events, summed over the calls, with the bound at the f32 CUDA
+    cores' peak."""
+    import torch
+    from prompt_tts_tpu_torch.ops.attention import attention_plain
+    from prompt_tts_tpu_torch.ops.cuda import opcount
+    from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
+    g = torch.Generator("cuda").manual_seed(0)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    flop = nbytes = 0
+    with torch.no_grad():
+        for _, Tq, Tk, H, D, masked, n in attn_cases():
+            q, k, v, bias = attn_inputs(g, B, Tq, Tk, H, D, masked,
+                                        torch.float32)
+            for key, fn in (("ms", flash_attention),
+                            ("plain_ms", attention_plain),
+                            ("library_ms", sdpa)):
+                tot[key] += n * cuda_ms(lambda: fn(q, k, v, bias), 3)
+            flop += n * opcount.attention_fwd(B, Tq, Tk, H, D)
+            nbytes += n * (4 * 2 * B * H * D * (Tq + Tk)
+                           + (4 * B * Tk if masked else 0))
+            del q, k, v, bias
+    torch.cuda.empty_cache()
+    b = bound(flop, nbytes, "float32")
+    return {**tot, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "unit": f"one forward's {ATTN_CALLS} calls, f32, B={B}"}
+
+
+def phase_export(smi, tmp, ckpt):
+    """``cli.export_checkpoint`` of the flagship train slice's checkpoint:
+    ``models/convert.load_reference_state`` of the file gives the
+    checkpoint's state bit for bit, and ``cli.synthesize --ref_ckpt`` on
+    it (4 requests, DDIM-50, bf16) the codes and wavs of an in-process
+    ``Synthesizer`` on the checkpoint's state.  Returns the launches of
+    the synthesis."""
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.cli import export_checkpoint
+    from prompt_tts_tpu_torch.cli import synthesize as cli
+    from prompt_tts_tpu_torch.cli._common import restore_model_state
+    from prompt_tts_tpu_torch.config import Config
+    from prompt_tts_tpu_torch.models.convert import load_reference_state
+    from prompt_tts_tpu_torch.pipeline import Synthesizer
+    out = os.path.join(tmp, "ckpt_export.pt")
+    t0 = time.perf_counter()
+    n = export_checkpoint.main(["--ckpt_dir", ckpt, "--out", out])
+    export_s = time.perf_counter() - t0
+    state, step = restore_model_state(ckpt, Config())
+    n_state = len(state)
+    n_transformers = sum(k.endswith("proj_in.weight") for k in state)
+    back = load_reference_state(out)
+    round_trip = set(back) == set(state) and all(
+        torch.equal(back[k], v) for k, v in state.items())
+    del back
+    argv = sum((["--text", t] for t in TEXTS), []) + [
+        "--out", os.path.join(tmp, "export.wav"), "--ref_ckpt", out,
+        "--steps", str(STEPS), "--device", "cuda", "--dtype", "bf16",
+        "--seed", "0"]
+    zero_counts()
+    _, wavs, codes = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = counts()
+    synth = Synthesizer(config=Config(), device="cuda", dtype=torch.bfloat16,
+                        num_inference_steps=STEPS, model_state=state)
+    del state
+    wavs_p, codes_p = synth.synthesize(TEXTS, seed=0, return_codes=True)
+    n_res = len(resnet_shapes(Config().model))
+    want = want_counts(attention_fwd=TEXT_LAYERS + 32 * STEPS,
+                       resnet=n_res * STEPS, lstm=2)
+    checks = {
+        "round_trip": round_trip,
+        # every tensor, the inv_freq buffer, each transformer's proj_out
+        "tensors": n == n_state + 1 + 2 * n_transformers,
+        "codes_equal_in_process": bool(np.array_equal(codes, codes_p)),
+        "wavs_equal_in_process": bool(np.array_equal(wavs, wavs_p)),
+        "launches": launches == want,
+    }
+    emit({"phase": "export", "what": f"cli.export_checkpoint of the flagship "
+          f"train slice (step {step}), then cli.synthesize --ref_ckpt, "
+          f"{N_REQUESTS} requests, DDIM-{STEPS} bf16", "checks": checks,
+          "tensors": n, "bytes": os.path.getsize(out), "export_s": export_s,
+          "launches": launches, "want_launches": want, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"export checks failed: {checks}")
+    del synth
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _near_boundary(latents, tol):
+    """Where a latent is within ``tol`` of a code rounding boundary."""
+    import torch
+    c = (latents + 1.0) * (1023.0 / 2.0)
+    return (c - torch.floor(c) - 0.5).abs() * (2.0 / 1023.0) <= tol
+
+
+def phase_ddpm(smi):
+    """The ancestral DDPM sampler with the flagship denoiser
+    (``ModelConfig()``, random seeded weights, bf16, cross-attention k/v
+    hoisted as ``Synthesizer`` does) at 4 requests over all 1,000 steps,
+    then the f32 decode: finite latents, the launches, ms a step, x real
+    time, and the idle share of the same step over a 100-step schedule.
+    Then the tiny config in f32 on the card against the CPU port, with the
+    same weights, x_T and injected noise.  Returns the launches of the
+    1,000-step run."""
+    import torch
+    from prompt_tts_tpu_torch.config import Config, ModelConfig
+    from prompt_tts_tpu_torch.diffusion.ddpm import ddpm_sample
+    from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
+    from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
+    from prompt_tts_tpu_torch.models.unet1d import cross_attention_kv
+    from prompt_tts_tpu_torch.pipeline import (
+        Synthesizer, full_f32, latents_to_codes, random_init_,
+    )
+    dev = torch.device("cuda")
+    synth = Synthesizer(Config(), device="cuda", dtype=torch.bfloat16)
+    ids, mask = synth.tokenizer.encode_batch(TEXTS)
+    ids, mask = (torch.from_numpy(a).to(dev) for a in (ids, mask))
+    x_T = synth.noise(0, N_REQUESTS).to(dev)
+    T = synth.schedule.num_train_timesteps
+    with torch.no_grad():
+        ctx = synth.model.encode_text(ids, mask)
+        kv = cross_attention_kv(synth.model.unet, ctx)
+
+        def eps(x, t):
+            return synth.model.denoise(x, t, ctx, cross_kv=kv)
+
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        lat = ddpm_sample(eps, synth.schedule, x_T,
+                          generator=torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        launches = counts()
+        t0 = time.perf_counter()
+        wav = synth.codec_runner.decode(latents_to_codes(lat))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        short = linear_schedule(100, device=dev)
+        prof = profile_step(lambda: ddpm_sample(
+            eps, short, x_T, generator=torch.Generator(dev).manual_seed(0)),
+            cpu=False)
+    n_res = len(resnet_shapes(Config().model))
+    want = want_counts(attention_fwd=32 * T, resnet=n_res * T)
+    finite = bool(torch.isfinite(lat).all()) and bool(
+        torch.isfinite(wav).all())
+    del synth, ctx, kv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the tiny config, f32: the card (kernels) against the CPU (plain)
+    mcfg = ModelConfig(**TINY)
+    g = torch.Generator().manual_seed(2)
+    x_t = torch.randn((2, mcfg.sample_size, mcfg.in_channels), generator=g)
+    noise = torch.randn((T, *x_t.shape), generator=g)
+    ids_t = torch.randint(1, 149, (2, mcfg.cmu_seq_len), generator=g)
+    mask_t = torch.ones_like(ids_t)
+    mask_t[1, 20:] = 0
+    out = {}
+    for d in ("cuda", "cpu"):
+        model = TTSSingleSpeaker(mcfg, device=d)
+        random_init_(model, torch.Generator().manual_seed(0))
+        model.eval()
+        with torch.no_grad(), full_f32():
+            c = model.encode_text(ids_t.to(d), mask_t.to(d))
+            out[d] = ddpm_sample(
+                lambda x, t: model.denoise(x, t, c), linear_schedule(
+                    T, device=d), x_t.to(d), noise=noise.to(d)).cpu()
+    err = (out["cuda"] - out["cpu"]).abs().max().item()
+    codes_card, codes_cpu = (latents_to_codes(out[d]) for d in ("cuda",
+                                                                "cpu"))
+    differ = codes_card != codes_cpu
+    near = _near_boundary(out["cpu"], DDPM_TOL).transpose(1, 2)
+    checks = {
+        "finite": finite,
+        "launches": launches == want,
+        "tiny_latents": err <= DDPM_TOL,
+        "tiny_codes": bool((~differ | near).all()) and bool(
+            ((codes_card - codes_cpu).abs() <= 1).all()),
+    }
+    audio_s = N_REQUESTS * AUDIO_S
+    emit({"phase": "ddpm", "what": f"ddpm_sample ModelConfig() bf16 "
+          f"B={N_REQUESTS}, {T} steps, then the f32 decode; tiny config f32 "
+          f"card vs CPU with injected noise", "checks": checks,
+          "sample_s": sample_s, "ms_per_step": sample_s * 1e3 / T,
+          "decode_s": decode_s,
+          "x_realtime": audio_s / (sample_s + decode_s),
+          "profile_100_steps": {k: prof[k] for k in (
+              "wall_ms", "busy_ms", "kernels", "idle_share", "by_class_ms")},
+          "launches": launches, "want_launches": want,
+          "tiny_max_abs_err": err, "tiny_tol": DDPM_TOL,
+          "tiny_codes_differ": int(differ.sum()), "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"ddpm checks failed: {checks}")
+    return launches
+
+
+def phase_profile(smi, tmp, train_batch):
+    """``cli.profile --stages cond,denoise,decode,train,synth --time`` at
+    full width, batch 8 (train ``train_batch``), DDIM-50, bf16: its table
+    printed; then the tiny config's five stages on the card and on the
+    CPU, whose FLOPs must agree (the kernels' formulas on the card,
+    ``FlopCounterMode`` on their plain versions on the CPU).  Returns the
+    launches of the full-width run."""
+    import torch
+    from prompt_tts_tpu_torch.cli import profile as cli
+    from prompt_tts_tpu_torch.config import Config, ModelConfig, TrainConfig
+    stages = "cond,denoise,decode,train,synth"
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    _, res, table = _last_json(cli.main, [
+        "--stages", stages, "--time", "--batch_size", str(2 * N_REQUESTS),
+        "--train_batch_size", str(train_batch), "--chain", "3",
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    for line in table:
+        print(line, flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg_path = os.path.join(tmp, "profile_tiny.json")
+    Config(model=ModelConfig(**TINY),
+           train=TrainConfig(batch_size=2)).to_json(cfg_path)
+    tiny = {}
+    for d in ("cuda", "cpu"):
+        _, tiny[d], _ = _last_json(cli.main, [
+            "--config_file", cfg_path, "--stages", stages, "--batch_size",
+            "1", "--num_inference_steps", "2", "--train_batch_size", "1",
+            "--device", d])
+    rel = {s: abs(tiny["cuda"]["stages"][s]["gflop"]
+                  - tiny["cpu"]["stages"][s]["gflop"])
+           / tiny["cpu"]["stages"][s]["gflop"] for s in stages.split(",")}
+    rows = res["stages"]
+    checks = {
+        "stages": set(rows) == set(stages.split(",")),
+        "timed": all(r["ms"] > 0 and r["gflop"] > 0 and r["peak_mib"] > 0
+                     for r in rows.values()),
+        "train_above_denoise": rows["train"]["gflop"]
+        > rows["denoise"]["gflop"],
+        "synth_covers_steps": rows["synth"]["gflop"] >= 0.9 * (
+            50 * rows["denoise"]["gflop"] + rows["decode"]["gflop"]),
+        "tiny_gflop_card_equals_cpu": all(v <= PROFILE_FLOP_RTOL
+                                          for v in rel.values()),
+        "launched": launches["attention_fwd"] > 0
+        and launches["attention_bwd"] > 0 and launches["resnet"] > 0,
+    }
+    emit({"phase": "profile", "what": f"cli.profile --stages {stages} --time "
+          f"--batch_size {2 * N_REQUESTS} --train_batch_size {train_batch} "
+          f"--chain 3, ModelConfig(), DDIM-50 bf16", "checks": checks,
+          "result": res, "run_s": run_s,
+          "tiny_gflop": {d: {s: r["gflop"] for s, r in
+                             tiny[d]["stages"].items()} for d in tiny},
+          "tiny_gflop_rel_gap": rel, "launches": launches, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"profile checks failed: {checks}")
+    return launches
+
+
+def remat_times(smi):
+    """The flagship bf16 train step at batch 32 on random codes, in turns
+    (each variant twice, forward order then backward order): plain; the
+    port's remat (a plain checkpoint region a block); and two renderings
+    of JAX's ``dots_with_no_batch_dims_saveable`` as a selective
+    checkpoint (``aten.mm`` / ``aten.addmm`` outputs saved): one region
+    over the whole model, as ``jax.checkpoint`` wraps it, and a region a
+    block.  Median wall of a synchronised step (clip and AdamW included)
+    and peak memory."""
+    import functools
+    import torch
+    from torch.utils.checkpoint import (
+        CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+    )
+    from prompt_tts_tpu_torch.config import Config
+    from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
+    from prompt_tts_tpu_torch.models.layers import set_compute_dtype_
+    from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
+    from prompt_tts_tpu_torch.pipeline import random_init_
+    from prompt_tts_tpu_torch.train import step as train_step
+    from prompt_tts_tpu_torch.train.state import TrainState
+    cfg, dev, B = Config(), torch.device("cuda"), TRAIN_BATCHES[0]
+    model = TTSSingleSpeaker(cfg.model, device=dev)
+    random_init_(model, torch.Generator().manual_seed(0))
+    set_compute_dtype_(model, torch.bfloat16)
+    model.train()
+    g = torch.Generator().manual_seed(1)
+    batch = {"codes": (torch.rand(B, 900, 8, generator=g) * 2 - 1).to(dev),
+             "text_ids": torch.randint(1, 149, (B, TEXT_LEN),
+                                       generator=g).to(dev),
+             "text_mask": torch.ones(B, TEXT_LEN, dtype=torch.long,
+                                     device=dev)}
+    state = TrainState(model, cfg.train, 100)
+    sched = linear_schedule(device=dev)
+
+    def dots(ctx, op, *args, **kwargs):
+        if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    selective = functools.partial(create_selective_checkpoint_contexts,
+                                  dots)
+    plain_loss = train_step.make_loss_fn(model, sched)
+    blocks = train_step.remat_blocks(model)
+
+    def one_region(b, gen):
+        def fn(*a):
+            return checkpoint(model, *a, use_reentrant=False,
+                              context_fn=selective)
+        return train_step.make_loss_fn(fn, sched)(b, gen)
+
+    def per_block_dots(b, gen):
+        for m in blocks:
+            m.forward = functools.partial(checkpoint, m.forward,
+                                          use_reentrant=False,
+                                          context_fn=selective)
+        try:
+            return plain_loss(b, gen)
+        finally:
+            for m in blocks:
+                del m.forward
+    variants = {"plain": plain_loss,
+                "remat": train_step.make_loss_fn(model, sched, remat=True),
+                "one_region_dots": one_region,
+                "per_block_dots": per_block_dots}
+
+    def step(name):
+        variants[name](batch, torch.Generator(dev).manual_seed(3)).backward()
+        state.apply_gradients()
+
+    for name in variants:
+        step(name)
+    walls = {n: [] for n in variants}
+    peaks = dict.fromkeys(variants, 0.0)
+    for name in list(variants) + list(variants)[::-1]:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step(name)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            peaks[name] = max(peaks[name],
+                              torch.cuda.max_memory_allocated() / 2**30)
+    emit({"phase": "remat_times", "what": f"train step ModelConfig() bf16 "
+          f"B={B}, random codes: plain, the port's remat and JAX's policy "
+          f"as a selective checkpoint (one region; a region a block)",
+          "median_step_s": {n: statistics.median(w)
+                            for n, w in walls.items()},
+          "step_s": walls, "peak_mem_gib": peaks, "card": smi})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3105,7 +3811,8 @@ def main():
              "--rvq-times": rvq_times,
              "--resnet-times": resnet_times,
              "--resnet-tiles": resnet_tile_sweep,
-             "--synth-times": synth_times}
+             "--synth-times": synth_times,
+             "--remat-times": remat_times}
     if any(a not in modes for a in sys.argv[1:]):
         raise SystemExit(f"chip_smoke: arguments are any of {list(modes)}")
     smi = phase_card()
@@ -3135,6 +3842,14 @@ def main():
             smi, codes_tar, tmp, batch)
         ckpt_synth = phase_ckpt_synth(smi, tmp, prompt_ckpt, prompt_cfg,
                                       ckpt)
+        remat = phase_remat_train(smi, codes_tar, batch)
+        extras = phase_train_cli_extras(smi, codes_tar, tmp)
+        evaluated = phase_evaluate(smi, codes_tar, ckpt, prompt_ckpt,
+                                   prompt_cfg, batch)
+        exported = phase_export(smi, tmp, ckpt)
+    ddpm = phase_ddpm(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        profiled = phase_profile(smi, tmp, batch)
     rvq["differ"]["prompt_latents"] = prompt_rvq_res["differ"]
     rvq["max_abs_err"] = max(rvq["max_abs_err"],
                              prompt_rvq_res["max_score_gap"], serve_rvq_gap)
@@ -3148,7 +3863,10 @@ def main():
                  "encode": encode[k], "prompt_train": prompt_train[k],
                  "ckpt_synthesize": ckpt_synth[k], "serve": served[k],
                  "synthesize_long": long_cli[k],
-                 "prompt_serve": prompt_served[k]} for k in KERNELS}
+                 "prompt_serve": prompt_served[k], "remat_train": remat[k],
+                 "train_cli_extras": extras[k], "evaluate": evaluated[k],
+                 "export": exported[k], "ddpm": ddpm[k],
+                 "profile": profiled[k]} for k in KERNELS}
     launches = {k: sum(p.values()) for k, p in paths.items()}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the paths never ran: {launches}")

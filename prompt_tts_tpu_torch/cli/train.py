@@ -5,14 +5,19 @@ The port of ``prompt_tts_tpu/cli/train.py``: the reference's flags
 --max_seq_length) plus --epochs, --resume, --ema_decay, --bf16,
 --eval_every, --log_every, --smoke (the tiny config, or --config_file's,
 on synthetic data), --init_from_ref (a warm start from a reference-repo
-``ckpt_N.pt``) and --device (``cuda`` unless the caller asks for ``cpu``).
-Both model families train: a config with ``prompt_conditioning`` gets
-prompt crops of ``prompt_frames`` in every batch.  Without a warm start the
-weights start from ``train.seed``.  Not ported yet: --tp, --sp,
---multihost, --per_process_data, --remat, --streaming, --profile_steps.
+``ckpt_N.pt``), --remat (activation recomputation), --profile_steps (a
+``torch.profiler`` Chrome trace of N steps under ``<log_dir>/trace/``),
+--streaming (batches read from the tar as they are needed) and --device
+(``cuda`` unless the caller asks for ``cpu``).  Both model families train:
+a config with ``prompt_conditioning`` gets prompt crops of
+``prompt_frames`` in every batch.  Without a warm start the weights start
+from ``train.seed``.  Not ported yet: --tp, --sp, --multihost,
+--per_process_data.
 
   python -m prompt_tts_tpu_torch.cli.train --data_file codes.tar \\
       --bf16 --ckpt_dir ckpt --ema_decay 0.999
+  python -m prompt_tts_tpu_torch.cli.train --data_file codes.tar \\
+      --streaming --remat --profile_steps 2
   python -m prompt_tts_tpu_torch.cli.train --smoke --device cpu
 """
 
@@ -52,6 +57,15 @@ def parse_args(argv=None):
     p.add_argument("--log_every", type=int, default=0,
                    help="Pull loss/grad_norm to the host (a device sync) "
                         "every N steps; 0 = 50 on the card, 1 on the CPU.")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="Capture a torch.profiler trace of N steps into "
+                        "<log_dir>/trace (0 = off).")
+    p.add_argument("--remat", action="store_true",
+                   help="Activation rematerialization "
+                        "(torch.utils.checkpoint).")
+    p.add_argument("--streaming", action="store_true",
+                   help="Stream batches from the tar instead of loading "
+                        "the corpus into RAM (large corpora).")
     p.add_argument("--smoke", action="store_true",
                    help="Tiny config on synthetic data (sanity check).")
     p.add_argument("--device", type=str, default="cuda")
@@ -106,9 +120,17 @@ def main(argv=None):
     else:
         if not args.data_file:
             raise SystemExit("--data_file is required (or use --smoke)")
-        dataset = CodeDataset(args.data_file,
-                              max_seq_length=args.max_seq_length,
-                              prompt_frames=pf)
+        if args.streaming:
+            from prompt_tts_tpu_torch.data.streaming import (
+                StreamingCodeDataset,
+            )
+            dataset = StreamingCodeDataset(
+                args.data_file, max_seq_length=args.max_seq_length,
+                prompt_frames=pf)
+        else:
+            dataset = CodeDataset(args.data_file,
+                                  max_seq_length=args.max_seq_length,
+                                  prompt_frames=pf)
 
     init_state = None
     if args.init_from_ref:
@@ -122,7 +144,8 @@ def main(argv=None):
         device=args.device,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         eval_every=args.eval_every, log_every=args.log_every,
-        init_state=init_state)
+        init_state=init_state, remat=args.remat,
+        profile_steps=args.profile_steps)
     if args.resume:
         trainer.restore_latest()
     loss = trainer.train(epochs=args.epochs)

@@ -9,8 +9,8 @@ out channels-last ``[B, T, 8]`` float32 in [-1, 1] (``c * 2/1023 - 1``),
 collated with numpy alone; text is phonemized once at load by the
 static-shape tokenizer.  With ``prompt_frames`` (the prompt-conditioned
 family) each batch also carries ``prompt``: a same-utterance crop of its
-latents, drawn as the JAX package draws it.  Streaming and per-process
-sharding are not ported.
+latents, drawn as the JAX package draws it.  Streaming is
+``data/streaming.py``; per-process sharding is not ported.
 """
 
 import io
@@ -49,6 +49,10 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
         except Exception as e:   # raised again in the consumer
             errors.append(e)
         finally:
+            if stop.is_set() and hasattr(iterator, "close"):
+                # abandoned: close the source too (a streaming dataset's
+                # own prefetch generator), so its thread exits as well
+                iterator.close()
             # the consumer waits for the sentinel, so it must arrive even
             # when the queue is full; only a consumer that has gone
             # (stop set) no longer needs it

@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from prompt_tts_tpu_torch.ops.attention import attention_plain
-from prompt_tts_tpu_torch.ops.cuda import _build
+from prompt_tts_tpu_torch.ops.cuda import _build, opcount
 
 HEAD_DIMS = (32, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -97,6 +97,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     strides, _build.stream_handle(q.device))
     _build.check(err, "attention kernel launch")
     flash_attention.launches += 1
+    opcount.record(opcount.attention_fwd(B, Tq, Tk, H, D))
     return (out, lse) if return_lse else out
 
 

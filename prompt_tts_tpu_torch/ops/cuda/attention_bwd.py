@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from prompt_tts_tpu_torch.ops.attention import attention_bwd_plain
-from prompt_tts_tpu_torch.ops.cuda import _build
+from prompt_tts_tpu_torch.ops.cuda import _build, opcount
 from prompt_tts_tpu_torch.ops.cuda.attention import check_copy_alignment
 
 HEAD_DIMS = (32, 64, 96, 128)
@@ -102,6 +102,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     _build.stream_handle(q.device))
     _build.check(err, "attention backward kernel launch")
     attention_bwd.launches += LAUNCHES_PER_CALL
+    opcount.record(opcount.attention_bwd(B, Tq, Tk, H, D))
     dbias = None
     if need_dbias:   # the bias broadcasts over heads: sum them
         dbias = dbias_h.sum(dim=1).reshape(B, 1, 1, Tk).to(bias.dtype)

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from prompt_tts_tpu_torch.ops.cuda import _build
+from prompt_tts_tpu_torch.ops.cuda import _build, opcount
 
 # csrc/lstm.cuh: hidden units a CTA owns (both kernels), the most batch
 # rows of h_{t-1} it stages at once
@@ -134,6 +134,7 @@ def lstm_recurrence(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
             T, B, H, _build.stream_handle(x_proj.device))
     _build.check(err, "LSTM kernel launch")
     lstm_recurrence.launches += 1
+    opcount.record(opcount.lstm(T, B, H))
     return out
 
 
@@ -215,6 +216,7 @@ def lstm_recurrence_t(x_proj: torch.Tensor,
             _build.stream_handle(x_proj.device))
     _build.check(err, "persistent LSTM kernel launch")
     lstm_recurrence_t.launches += 1
+    opcount.record(opcount.lstm(T, B, H))
     return out
 
 

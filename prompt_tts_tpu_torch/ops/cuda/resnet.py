@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from prompt_tts_tpu_torch.ops.cuda import _build
+from prompt_tts_tpu_torch.ops.cuda import _build, opcount
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUPS = 128
@@ -174,6 +174,7 @@ def _launch(x: torch.Tensor, temb_proj: torch.Tensor,
             err = lib.ptts_resnet_block(*args)
     _build.check(err, "resnet block kernel launch")
     fused_resnet_block.launches += 1
+    opcount.record(opcount.resnet_block(B, T, Cin, Cout))
     return out
 
 

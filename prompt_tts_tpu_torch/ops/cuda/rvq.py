@@ -28,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from prompt_tts_tpu_torch.ops.cuda import _build
+from prompt_tts_tpu_torch.ops.cuda import _build, opcount
 
 DIM = 128          # the code dim the kernel takes
 CODE_TILE = 64     # K must be a multiple of the kernel's code tile
@@ -163,6 +163,7 @@ def rvq_encode(embeddings: torch.Tensor,
         .multi_processor_count
     out = _launch(embeddings, codebooks, rvq_plan(B * T, n_q, K, sms))
     rvq_encode.launches += 1
+    opcount.record(opcount.rvq_encode(B * T, n_q, K, D))
     return out
 
 

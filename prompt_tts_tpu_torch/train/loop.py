@@ -4,17 +4,24 @@ Port of ``prompt_tts_tpu/train/loop.py`` (reference train.py:21-147) on one
 device, for both model families (``TTSPromptSpeaker`` when the config has
 ``prompt_conditioning``, else ``TTSSingleSpeaker``).  Steps are enqueued
 eagerly; the loss and gradient norm are pulled to the host (a device sync)
-every ``log_every`` steps.  Tensor, sequence and multi-host parallelism,
-profiling and ``--remat`` are not ported.
+every ``log_every`` steps.  ``remat`` recomputes activations in the
+backward pass (``train/step.py``); ``profile_steps`` N > 0 traces steps
+2 .. 2+N with ``torch.profiler`` (host and device) into a Chrome trace
+under ``<log_dir>/trace/``, each step inside ``record_function
+("train_step")``.  The dataset may be the in-RAM ``CodeDataset`` or the
+``StreamingCodeDataset``.  Tensor, sequence and multi-host parallelism are
+not ported.
 """
 
 import logging
 import math
+import os
 import time
 from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from prompt_tts_tpu_torch.config import Config
 from prompt_tts_tpu_torch.data.dataset import prefetch
@@ -25,7 +32,9 @@ from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
 from prompt_tts_tpu_torch.pipeline import random_init_
 from prompt_tts_tpu_torch.train.checkpoint import CheckpointManager
 from prompt_tts_tpu_torch.train.state import TrainState
-from prompt_tts_tpu_torch.train.step import make_eval_step, make_train_step
+from prompt_tts_tpu_torch.train.step import (
+    eval_generator, make_eval_step, make_train_step,
+)
 from prompt_tts_tpu_torch.utils.debug import finite_or_warn
 from prompt_tts_tpu_torch.utils.metrics import MetricsWriter
 
@@ -69,16 +78,21 @@ class Trainer:
     JAX ``--bf16``).  ``log_every`` 0 means 50 on the card
     and 1 on the CPU.  ``eval_every`` > 0 runs :meth:`evaluate` on the
     train set every that many epochs.  The next batch is collated in a
-    background thread (:func:`prefetch`) while the step runs.
+    background thread (:func:`prefetch`) while the step runs.  ``remat``
+    and ``profile_steps``: see the module docstring.
     """
 
     def __init__(self, config: Config, dataset, log_dir: str,
                  ckpt_dir: Optional[str] = None, device="cuda",
                  dtype: torch.dtype = torch.float32, eval_every: int = 0,
                  log_every: int = 0,
-                 init_state: Optional[Mapping[str, torch.Tensor]] = None):
+                 init_state: Optional[Mapping[str, torch.Tensor]] = None,
+                 remat: bool = False, profile_steps: int = 0):
         if log_every < 0:
             raise ValueError(f"log_every must be >= 0, got {log_every}")
+        if profile_steps < 0:
+            raise ValueError(f"profile_steps must be >= 0, got "
+                             f"{profile_steps}")
         if (config.model.prompt_conditioning
                 and not getattr(dataset, "prompt_frames", None)):
             raise ValueError("Trainer: a prompt-conditioned config needs a "
@@ -87,6 +101,9 @@ class Trainer:
         self.config = config
         self.dataset = dataset
         self.eval_every = eval_every
+        self.log_dir = log_dir
+        self.profile_steps = profile_steps
+        self._profiler = None
         self.log_every = log_every or (
             50 if self.device.type == "cuda" else 1)
         tcfg = config.train
@@ -114,7 +131,7 @@ class Trainer:
         self.generator = torch.Generator(self.device).manual_seed(tcfg.seed)
         self._step_fn = make_train_step(
             self.state, self.schedule,
-            cond_dropout_prob=tcfg.cond_dropout_prob)
+            cond_dropout_prob=tcfg.cond_dropout_prob, remat=remat)
         self._eval_fn = make_eval_step(self.model, self.schedule)
         self.global_step = 0
         self._tput_mark = None
@@ -158,6 +175,31 @@ class Trainer:
                             self.global_step)
                 self.save()
             raise
+        finally:
+            self._stop_trace()
+
+    def _start_trace(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+
+    def _stop_trace(self) -> None:
+        """Stop the trace, if one runs, and write it as a Chrome trace
+        under ``<log_dir>/trace/``."""
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        trace_dir = os.path.join(self.log_dir, "trace")
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"steps_{self.global_step}.json")
+        prof.export_chrome_trace(path)
+        log.info("profiler trace written to %s", path)
 
     def _train(self, epochs: Optional[int] = None) -> float:
         tcfg = self.config.train
@@ -175,14 +217,29 @@ class Trainer:
             log.info("Starting epoch %d", epoch)
             t_epoch = time.time()
             pending = None
-            for batch in prefetch(self.dataset.batches(
-                    tcfg.batch_size, shuffle=True, seed=tcfg.seed + epoch)):
-                m = self._step_fn(self._to_device(batch), self.generator)
-                self.global_step += 1
-                pending = m
-                if self.global_step % self.log_every == 0:
-                    last_loss = self._pull_metrics(m)
-                    pending = None
+            batches = prefetch(self.dataset.batches(
+                tcfg.batch_size, shuffle=True, seed=tcfg.seed + epoch))
+            try:
+                for batch in batches:
+                    # the same window as the JAX trainer: past the first
+                    # two steps (allocator and cuBLAS warm-up)
+                    if self.profile_steps and self.global_step == 2:
+                        self._start_trace()
+                    with record_function("train_step"):
+                        m = self._step_fn(self._to_device(batch),
+                                          self.generator)
+                    self.global_step += 1
+                    if (self.profile_steps and self.global_step
+                            == 2 + self.profile_steps):
+                        self._stop_trace()
+                    pending = m
+                    if self.global_step % self.log_every == 0:
+                        last_loss = self._pull_metrics(m)
+                        pending = None
+            finally:
+                # a step that raised abandons the generator: close it, so
+                # its worker (and a streaming dataset's) exits
+                batches.close()
             if pending is not None:  # epoch tail between cadence points
                 last_loss = self._pull_metrics(pending)
             self.metrics.add_scalar("epoch_time_s", time.time() - t_epoch,
@@ -228,9 +285,9 @@ class Trainer:
         total, n = 0.0, 0
         for i, batch in enumerate(dataset.batches(
                 self.config.train.batch_size)):
-            g = torch.Generator(self.device).manual_seed(seed * 1_000_003
-                                                         + i)
-            total += float(self._eval_fn(self._to_device(batch), g))
+            total += float(self._eval_fn(self._to_device(batch),
+                                         eval_generator(self.device, seed,
+                                                        i)))
             n += 1
         if n == 0:
             raise ValueError(

@@ -12,14 +12,35 @@ default generator, which the checkpoint saves beside the step's own.
 Both families: a batch with a ``prompt`` key (the prompt-conditioned
 family's voice-prompt latents) passes it to the model, and the condition
 drop nulls the text and the prompt together.  For parity tests the noise,
-timesteps and drop can be passed in instead of drawn.  ``--remat`` and the
-``rbg`` dropout stream are not ported.
+timesteps and drop can be passed in instead of drawn.
+
+``remat=True`` (``--remat``, JAX's ``jax.checkpoint``) runs each block
+of the model (every resnet block, spatial transformer, and text or
+prompt encoder layer) as its own non-reentrant ``torch.utils.checkpoint``
+region: a block keeps only its inputs, and the backward pass recomputes
+it, attention kernel included, one block at a time.  JAX wraps the whole
+model in one region with ``dots_with_no_batch_dims_saveable``, where XLA
+fuses the recomputed elementwise work into the backward.  Eager PyTorch
+has no such fusion (``chip_smoke.py --remat-times``, the flagship's bf16
+step at batch 32 on an NVIDIA H100 80GB HBM3 at 700 W; plain 0.159 s,
+16.31 GiB): that policy as a selective checkpoint (matmul outputs kept)
+over one region recomputes the whole forward at once and holds it again
+(0.371 s, 16.29 GiB); over a region a block it keeps the linear layers'
+outputs and runs a Python dispatch mode over every op (0.426 s, 9.03
+GiB); a plain region a block takes 0.271 s and 4.72 GiB.  A
+block with active dropout restores the global generators before its
+recompute, so it draws the same masks; every op on the path is
+deterministic, so the loss and gradients are the bits of the step
+without remat.  The ``rbg`` dropout stream is not ported.
 """
 
-from typing import Callable, Dict, Optional
+import contextlib
+import functools
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from prompt_tts_tpu_torch.diffusion.schedule import (
     DiffusionSchedule, add_noise,
@@ -52,8 +73,59 @@ def _condition(batch: Dict[str, torch.Tensor]):
     return cond
 
 
+def remat_blocks(model: nn.Module) -> List[nn.Module]:
+    """The modules that ``remat`` checkpoints one by one: the resnet
+    blocks, the spatial transformers, and the transformer layers outside
+    them (the text and prompt encoders')."""
+    from prompt_tts_tpu_torch.models.layers import TransformerBlock
+    from prompt_tts_tpu_torch.models.unet1d import (
+        ResnetBlock1D, SpatialTransformer1D,
+    )
+    inside = {id(b) for m in model.modules()
+              if isinstance(m, SpatialTransformer1D) for b in m.modules()}
+    return [m for m in model.modules()
+            if isinstance(m, (ResnetBlock1D, SpatialTransformer1D))
+            or (isinstance(m, TransformerBlock) and id(m) not in inside)]
+
+
+def _draws(block: nn.Module) -> bool:
+    """Whether ``block`` draws random numbers in training (a dropout with
+    p > 0): only then must its recompute restore the generators."""
+    return any(isinstance(m, nn.Dropout) and m.p > 0
+               for m in block.modules())
+
+
+@contextlib.contextmanager
+def _checkpointed(blocks: List[nn.Module]):
+    """Run each of ``blocks`` as its own checkpoint region while the
+    context is open."""
+    for m in blocks:
+        m.forward = functools.partial(checkpoint, m.forward,
+                                      use_reentrant=False,
+                                      preserve_rng_state=_draws(m))
+    try:
+        yield
+    finally:
+        for m in blocks:
+            del m.forward       # back to the class's forward
+
+
+def _model_fn(model: nn.Module, remat: bool) -> Callable:
+    """``model`` itself, or under remat the model with its blocks
+    checkpointed."""
+    if not remat:
+        return model
+    blocks = remat_blocks(model)
+
+    def remat_model(*args):
+        with _checkpointed(blocks):
+            return model(*args)
+    return remat_model
+
+
 def make_loss_fn(model: nn.Module, schedule: DiffusionSchedule,
-                 cond_dropout_prob: float = 0.0) -> Callable:
+                 cond_dropout_prob: float = 0.0,
+                 remat: bool = False) -> Callable:
     """The DDPM ε-MSE over one batch: ``codes [B,T,C]`` in [-1, 1],
     ``text_ids [B,S]``, ``text_mask [B,S]`` and, for the prompt family,
     ``prompt [B,Tp,C]``.  ``cond_dropout_prob`` > 0 nulls the conditioning
@@ -63,8 +135,11 @@ def make_loss_fn(model: nn.Module, schedule: DiffusionSchedule,
 
     ``loss_fn(batch, generator, noise=None, timesteps=None, drop=None)``
     draws noise, then timesteps, then the drop from ``generator``, unless
-    they are given.
+    they are given.  ``remat`` recomputes the activations in the backward
+    pass (see the module docstring).
     """
+    model_fn = _model_fn(model, remat)
+
     def loss_fn(batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
@@ -83,18 +158,19 @@ def make_loss_fn(model: nn.Module, schedule: DiffusionSchedule,
             # [B, Tp, C] takes it as [B, 1, 1]
             cond = tuple(torch.where(drop.view(-1, *[1] * (c.dim() - 1)),
                                      torch.zeros_like(c), c) for c in cond)
-        pred = model(noisy, timesteps, *cond)
+        pred = model_fn(noisy, timesteps, *cond)
         return _mse(pred, noise)
 
     return loss_fn
 
 
 def make_train_step(state: TrainState, schedule: DiffusionSchedule,
-                    cond_dropout_prob: float = 0.0) -> Callable:
+                    cond_dropout_prob: float = 0.0,
+                    remat: bool = False) -> Callable:
     """``train_step(batch, generator, **inputs) -> {"loss", "grad_norm"}``
     (device scalars: reading them is the host sync).  ``inputs`` are the
     loss function's ``noise`` / ``timesteps`` / ``drop``."""
-    loss_fn = make_loss_fn(state.model, schedule, cond_dropout_prob)
+    loss_fn = make_loss_fn(state.model, schedule, cond_dropout_prob, remat)
 
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
@@ -106,6 +182,13 @@ def make_train_step(state: TrainState, schedule: DiffusionSchedule,
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
     return train_step
+
+
+def eval_generator(device, seed: int, i: int) -> torch.Generator:
+    """The generator of eval batch ``i``'s noise and timesteps: a fixed
+    stream for each batch index, so eval losses compare across
+    checkpoints and runs."""
+    return torch.Generator(device).manual_seed(seed * 1_000_003 + i)
 
 
 def make_eval_step(model: nn.Module, schedule: DiffusionSchedule):
