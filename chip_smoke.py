@@ -127,6 +127,22 @@ Phases, each printed as one JSON object per line:
   16. profile: ``cli.profile --stages cond,denoise,decode,train,synth
      --time`` at full width (its table printed), and a tiny config's FLOPs
      on the card against the CPU.
+  17. ddp_nccl: ``parallel.init_distributed`` over NCCL at world size 1
+     in this process; the flagship, bf16, batch 32, 3 steps through
+     ``Trainer`` under DDP against the plain trainer run twice (DDP's loss
+     gap at most twice the card's own noise floor + 1e-6, kernels #1 and
+     #2 launched), and the prompt family under DDP (batch 4, 2 steps:
+     DDP raises on a parameter the loss left unreached).
+  18. ddp_two_ranks: 2 processes sharing the card over gloo, global
+     batch 32: one f32 step's all-reduced gradient and loss against one
+     process on the same rows (1e-4 and 1e-5 relative), 3 bf16 steps
+     replicated and with ``per_process_data`` (within 2e-2 of one
+     process), rank 0's checkpoint read back through
+     ``read_model_state``; gloo's step time on one card, not a scaling
+     figure.
+  19. torchrun: ``torchrun --standalone --nproc_per_node 1 -m
+     prompt_tts_tpu_torch.cli.train --multihost --smoke`` on ``TINY``:
+     exit 0 and finite losses.
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises (non-zero exit); without CUDA it exits non-zero
 before any result.
@@ -153,6 +169,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -3708,6 +3725,359 @@ def phase_profile(smi, tmp, train_batch):
     return launches
 
 
+# data parallelism: the flagship's global batch and steps in the DDP
+# phases, and the bounds the two-rank runs are held to against one process
+# (f32 without TF32: the same arithmetic in another order; bf16: the
+# rounding of the bf16 compute over three updates)
+DDP_BATCH = 32
+DDP_STEPS = 3
+DDP_F32_GRAD_RTOL = 1e-4
+DDP_F32_LOSS_RTOL = 1e-5
+DDP_BF16_LOSS_RTOL = 2e-2
+DDP_RANKS = 2
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ddp_config(dropout=True, **train):
+    """The flagship ``ModelConfig()`` at the DDP phases' batch, one epoch;
+    ``dropout`` False turns the text encoder's off, so that two ranks and
+    one process draw alike."""
+    from prompt_tts_tpu_torch.config import Config
+    cfg = Config()
+    model = (cfg.model if dropout
+             else dataclasses.replace(cfg.model, text_encoder_dropout=0.0))
+    return dataclasses.replace(cfg, model=model, train=dataclasses.replace(
+        cfg.train, batch_size=DDP_BATCH, num_train_epochs=1, **train))
+
+
+def _ddp_data(cfg, steps, **kw):
+    from prompt_tts_tpu_torch.data.dataset import SyntheticDataset
+    return SyntheticDataset(n=cfg.train.batch_size * steps,
+                            frames=cfg.model.sample_size,
+                            max_seq_length=cfg.model.cmu_seq_len, **kw)
+
+
+def _train_run(cfg, ds, log_dir, dtype, device="cuda", **kw):
+    """Train one epoch with a loss pull every step; returns (the losses
+    by step, the seconds of each step after the first, the launches).
+    Only rank 0 logs, so other ranks return no losses or times."""
+    import torch
+    from prompt_tts_tpu_torch.parallel import data_rank
+    from prompt_tts_tpu_torch.train.loop import Trainer
+    trainer = Trainer(cfg, ds, log_dir=log_dir, device=device, dtype=dtype,
+                      log_every=1, **kw)
+    torch.cuda.synchronize()
+    zero_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    launches = counts()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if data_rank() != 0:
+        return {}, [], launches
+    losses = _logged(log_dir, "Loss/train")
+    step_s = [cfg.train.batch_size / v for v in
+              _logged(log_dir, "examples_per_s").values()]
+    return losses, step_s, launches
+
+
+def _grad_step(cfg, ds, log_dir, device):
+    """One f32 step of a fresh trainer on the dataset's first global
+    batch, TF32 off: (the loss, the flat gradient ``apply_gradients``
+    received, after DDP's all-reduce under a process group, the step's
+    seconds)."""
+    import torch
+    from prompt_tts_tpu_torch.pipeline import full_f32
+    from prompt_tts_tpu_torch.train.loop import Trainer
+    trainer = Trainer(cfg, ds, log_dir=log_dir, device=device)
+    grads = []
+    apply = trainer.state.apply_gradients
+
+    def snapshot():
+        grads.append(torch.cat([p.grad.flatten()
+                                for p in trainer.state.params]))
+        return apply()
+    trainer.state.apply_gradients = snapshot
+    batch = next(ds.batches(cfg.train.batch_size))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with full_f32():
+        loss = float(trainer.train_step(batch)["loss"])
+    step_s = time.perf_counter() - t0
+    del trainer
+    return loss, grads[0], step_s
+
+
+def phase_ddp_nccl(smi, tmp):
+    """``parallel.init_distributed`` over NCCL at world size 1 in this
+    process, then the flagship at full width, bf16, batch 32, 3 steps
+    through ``Trainer`` under DDP, against the plain one-process trainer
+    twice (the second run gives the card's own noise floor): DDP's loss gap
+    at most 2x the floor + 1e-6, kernels #1 and #2 launched under DDP.
+    Then the prompt family at full width, 2 steps at batch 4 under DDP
+    with the condition drop: DDP without an unused-parameter search raises
+    at the second step if a parameter went unreached.  Returns the
+    launches under DDP."""
+    import torch
+    import torch.distributed as dist
+    from prompt_tts_tpu_torch.parallel import data_size, init_distributed
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _ddp_config()
+    ds = _ddp_data(cfg, DDP_STEPS)
+    env = {"PTTS_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "PTTS_NUM_PROCESSES": "1", "PTTS_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        device = init_distributed("cuda")
+        backend, world = dist.get_backend(), data_size()
+        ddp, ddp_s, launches = _train_run(
+            cfg, ds, os.path.join(tmp, "ddp_nccl"), torch.bfloat16, device)
+        pcfg = dataclasses.replace(
+            cfg, model=prompt_config(), train=dataclasses.replace(
+                cfg.train, batch_size=4, cond_dropout_prob=0.1))
+        pds = _ddp_data(pcfg, 2, prompt_frames=pcfg.model.prompt_frames)
+        prompt, _, prompt_launches = _train_run(
+            pcfg, pds, os.path.join(tmp, "ddp_nccl_prompt"), torch.bfloat16,
+            device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    plain, plain_s, _ = _train_run(cfg, ds, os.path.join(tmp, "plain_1"),
+                                   torch.bfloat16)
+    again, again_s, _ = _train_run(cfg, ds, os.path.join(tmp, "plain_2"),
+                                   torch.bfloat16)
+    steps = sorted(plain)
+    gap = max(abs(ddp[s] - plain[s]) for s in steps)
+    floor = max(abs(again[s] - plain[s]) for s in steps)
+    checks = {
+        "nccl_world_1": backend == "nccl" and world == 1,
+        "steps": sorted(ddp) == sorted(again) == steps == list(
+            range(1, DDP_STEPS + 1)),
+        "finite": all(map(math.isfinite, list(ddp.values())
+                          + list(prompt.values()))),
+        "ddp_within_noise": gap <= 2 * floor + 1e-6,
+        "launched": launches["attention_fwd"] > 0
+        and launches["attention_bwd"] > 0,
+        "prompt_two_steps": sorted(prompt) == [1, 2],
+    }
+    emit({"phase": "ddp_nccl", "what": f"Trainer under DDP over NCCL, world "
+          f"size 1: ModelConfig() bf16 batch {DDP_BATCH}, {DDP_STEPS} steps, "
+          f"against the plain trainer twice; the prompt family under DDP, "
+          f"batch 4, 2 steps", "checks": checks,
+          "loss": {"ddp": ddp, "plain": plain, "plain_again": again,
+                   "prompt_ddp": prompt},
+          "ddp_gap": gap, "noise_floor": floor,
+          "step_s": {"ddp": ddp_s, "plain": plain_s + again_s},
+          "launches": launches, "prompt_launches": prompt_launches,
+          "phase_s": time.perf_counter() - t_phase, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"ddp_nccl checks failed: {checks}")
+    return {k: launches[k] + prompt_launches[k] for k in KERNELS}
+
+
+def ddp_rank_main(out):
+    """One rank of :func:`phase_ddp_two_ranks` (a process of its own,
+    started with the ``PTTS_*`` variables): gloo, since both ranks share
+    the one card.  The f32 step's gradient (rank 0 saves it), then three
+    bf16 steps replicated (rank 0 writes the checkpoint) and with
+    ``per_process_data``; its results go to ``rank<r>.json``."""
+    import torch
+    from prompt_tts_tpu_torch.parallel import (
+        barrier, data_rank, init_distributed,
+    )
+    device = init_distributed("cuda", backend="gloo")
+    rank = data_rank()
+    res = {"rank": rank, "device": str(device),
+           "backend": torch.distributed.get_backend()}
+    zero_counts()
+    f32 = _ddp_config(dropout=False)
+    res["f32_loss"], grad, res["f32_step_s"] = _grad_step(
+        f32, _ddp_data(f32, 1), os.path.join(out, f"f32_{rank}"), device)
+    if rank == 0:
+        torch.save(grad.cpu(), os.path.join(out, "grad.pt"))
+    del grad
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16 = _ddp_config(dropout=False)
+    ds = _ddp_data(bf16, DDP_STEPS)
+    for mode in ("replicated", "per_process"):
+        per = mode == "per_process"
+        losses, step_s, _ = _train_run(
+            bf16, ds, os.path.join(out, f"{mode}_{rank}"), torch.bfloat16,
+            device, per_process_data=per,
+            ckpt_dir=None if per else os.path.join(out, "ckpt"))
+        res[mode] = {"losses": losses, "step_s": step_s}
+    res["launches"] = counts()
+    barrier()
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_ddp_two_ranks(smi, tmp):
+    """Two processes on the one card over gloo (``ddp_rank_main``), the
+    flagship at full width, global batch 32 (16 a rank), the text
+    encoder's dropout off so that the ranks draw what one process draws:
+    one f32 step (TF32 off) whose all-reduced gradient and loss are held
+    to this process's one-process step on the same 32 rows (relative
+    1e-4 and 1e-5), and three bf16 steps replicated and with
+    ``per_process_data``, finite and within 2e-2 of the one-process run;
+    rank 0's checkpoint read back here through ``read_model_state``.  The
+    step times are gloo's on one card: the gradients' all-reduce goes
+    through host memory.  Returns the ranks' launches."""
+    import torch
+    from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
+    from prompt_tts_tpu_torch.train.checkpoint import CheckpointManager
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "two_ranks")
+    os.makedirs(out)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PTTS_COORDINATOR=f"127.0.0.1:{_free_port()}",
+               PTTS_NUM_PROCESSES=str(DDP_RANKS),
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    argv = [sys.executable, "-c",
+            f"import chip_smoke; chip_smoke.ddp_rank_main({out!r})"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv, cwd=here, env=dict(
+        env, PTTS_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(DDP_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    failed = [f"rank {r} exited {p.returncode}:\n{log[-3000:]}"
+              for r, (p, log) in enumerate(zip(procs, logs))
+              if p.returncode != 0]
+    if failed:
+        raise AssertionError("ddp_two_ranks: " + "\n".join(failed))
+    ranks = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    f32 = _ddp_config(dropout=False)
+    loss1, g1, one_f32_s = _grad_step(f32, _ddp_data(f32, 1),
+                                      os.path.join(tmp, "f32_one"), "cuda")
+    g2 = torch.load(os.path.join(out, "grad.pt")).to(g1.device)
+    grad_gap = float(torch.linalg.vector_norm(g2 - g1)
+                     / torch.linalg.vector_norm(g1))
+    del g1, g2
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss2 = ranks[0]["f32_loss"]
+    loss_gap = abs(loss2 - loss1) / abs(loss1)
+    bf16 = _ddp_config(dropout=False)
+    one, one_s, _ = _train_run(bf16, _ddp_data(bf16, DDP_STEPS),
+                               os.path.join(tmp, "bf16_one"),
+                               torch.bfloat16)
+    gaps = {}
+    for mode in ("replicated", "per_process"):
+        got = {int(k): v for k, v in ranks[0][mode]["losses"].items()}
+        gaps[mode] = max(abs(got[s] - one[s]) / abs(one[s]) for s in one)
+    ckpt = CheckpointManager(os.path.join(out, "ckpt"))
+    sd, step = ckpt.read_model_state()
+    model = TTSSingleSpeaker(bf16.model, device="meta")
+    model.load_state_dict(sd, strict=True, assign=True)
+    checks = {
+        "gloo_on_one_card": all(r["backend"] == "gloo"
+                                and r["device"] == "cuda:0" for r in ranks),
+        "f32_grad_rel_gap": grad_gap <= DDP_F32_GRAD_RTOL,
+        "f32_loss_rel_gap": loss_gap <= DDP_F32_LOSS_RTOL,
+        "f32_loss_same_on_ranks": ranks[0]["f32_loss"]
+        == ranks[1]["f32_loss"],
+        "bf16_finite": all(math.isfinite(v) for r in ranks
+                           for m in gaps for v in r[m]["losses"].values()),
+        "bf16_steps": all(len(ranks[0][m]["losses"]) == DDP_STEPS
+                          for m in gaps) and sorted(one) == list(
+                              range(1, DDP_STEPS + 1)),
+        "bf16_within": all(g <= DDP_BF16_LOSS_RTOL for g in gaps.values()),
+        "checkpoint_read": step == DDP_STEPS and all(
+            bool(torch.isfinite(v).all()) for v in sd.values()
+            if v.is_floating_point()),
+        "launched": all(r["launches"]["attention_fwd"] > 0
+                        and r["launches"]["attention_bwd"] > 0
+                        for r in ranks),
+    }
+    emit({"phase": "ddp_two_ranks", "what": f"{DDP_RANKS} processes on one "
+          f"card over gloo, ModelConfig() global batch {DDP_BATCH}, dropout "
+          f"off: one f32 step (TF32 off) against one process, {DDP_STEPS} "
+          f"bf16 steps replicated and per_process_data", "checks": checks,
+          "f32": {"grad_rel_gap": grad_gap, "loss_rel_gap": loss_gap,
+                  "loss_two_ranks": loss2, "loss_one": loss1,
+                  "step_s_two_ranks": [r["f32_step_s"] for r in ranks],
+                  "step_s_one": one_f32_s},
+          "bf16": {"loss_rel_gap": gaps, "loss_one": one,
+                   "losses_two_ranks": {m: ranks[0][m]["losses"]
+                                        for m in gaps},
+                   "step_s_two_ranks": {m: ranks[0][m]["step_s"]
+                                        for m in gaps},
+                   "step_s_one": one_s},
+          "ranks_s": ranks_s, "checkpoint_step": step,
+          "launches": [r["launches"] for r in ranks],
+          "phase_s": time.perf_counter() - t_phase, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"ddp_two_ranks checks failed: {checks}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
+
+
+def phase_torchrun(smi, tmp):
+    """``torchrun --standalone --nproc_per_node 1 -m
+    prompt_tts_tpu_torch.cli.train --multihost --smoke`` on the card, with
+    ``TINY`` as the config (the smoke config's head dims are below what
+    kernel #1 takes): exit 0 and finite losses in its log."""
+    from prompt_tts_tpu_torch.config import Config, ModelConfig, TrainConfig
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg_path = os.path.join(tmp, "torchrun_tiny.json")
+    Config(model=ModelConfig(**TINY),
+           train=TrainConfig(batch_size=8, num_train_epochs=1,
+                             learning_rate=1e-3,
+                             lr_warmup_steps=0)).to_json(cfg_path)
+    log_dir = os.path.join(tmp, "torchrun_log")
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1", "-m", "prompt_tts_tpu_torch.cli.train",
+            "--multihost", "--smoke", "--config_file", cfg_path,
+            "--log_every", "1", "--log_dir", log_dir, "--ckpt_dir",
+            os.path.join(tmp, "torchrun_ckpt")]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=here, env=env, capture_output=True,
+                          text=True, timeout=300)
+    run_s = time.perf_counter() - t0
+    losses = (_logged(log_dir, "Loss/train") if proc.returncode == 0
+              else {})
+    checks = {"exit_0": proc.returncode == 0,
+              "losses": sorted(losses) == [1, 2],
+              "finite": all(map(math.isfinite, losses.values()))}
+    emit({"phase": "torchrun", "what": "torchrun --standalone "
+          "--nproc_per_node 1 -m prompt_tts_tpu_torch.cli.train --multihost "
+          "--smoke --config_file <TINY>", "checks": checks,
+          "loss": losses, "run_s": run_s, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"torchrun checks failed: {checks}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+
+
 def remat_times(smi):
     """The flagship bf16 train step at batch 32 on random codes, in turns
     (each variant twice, forward order then backward order): plain; the
@@ -3850,6 +4220,9 @@ def main():
     ddpm = phase_ddpm(smi)
     with tempfile.TemporaryDirectory() as tmp:
         profiled = phase_profile(smi, tmp, batch)
+        ddp_nccl = phase_ddp_nccl(smi, tmp)
+        ddp_ranks = phase_ddp_two_ranks(smi, tmp)
+        phase_torchrun(smi, tmp)
     rvq["differ"]["prompt_latents"] = prompt_rvq_res["differ"]
     rvq["max_abs_err"] = max(rvq["max_abs_err"],
                              prompt_rvq_res["max_score_gap"], serve_rvq_gap)
@@ -3866,7 +4239,8 @@ def main():
                  "prompt_serve": prompt_served[k], "remat_train": remat[k],
                  "train_cli_extras": extras[k], "evaluate": evaluated[k],
                  "export": exported[k], "ddpm": ddpm[k],
-                 "profile": profiled[k]} for k in KERNELS}
+                 "profile": profiled[k], "ddp_nccl": ddp_nccl[k],
+                 "ddp_two_ranks": ddp_ranks[k]} for k in KERNELS}
     launches = {k: sum(p.values()) for k, p in paths.items()}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the paths never ran: {launches}")

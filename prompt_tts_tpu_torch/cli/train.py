@@ -7,18 +7,28 @@ The port of ``prompt_tts_tpu/cli/train.py``: the reference's flags
 on synthetic data), --init_from_ref (a warm start from a reference-repo
 ``ckpt_N.pt``), --remat (activation recomputation), --profile_steps (a
 ``torch.profiler`` Chrome trace of N steps under ``<log_dir>/trace/``),
---streaming (batches read from the tar as they are needed) and --device
-(``cuda`` unless the caller asks for ``cpu``).  Both model families train:
-a config with ``prompt_conditioning`` gets prompt crops of
+--streaming (batches read from the tar as they are needed), --multihost
+(data parallelism: one process per GPU under DDP, ``--batch_size`` the
+global batch), --per_process_data (with --multihost: each process
+collates only its rows) and --device (``cuda`` unless the caller asks for
+``cpu``; under --multihost ``cuda:LOCAL_RANK``).  Both model families
+train: a config with ``prompt_conditioning`` gets prompt crops of
 ``prompt_frames`` in every batch.  Without a warm start the weights start
-from ``train.seed``.  Not ported yet: --tp, --sp, --multihost,
---per_process_data.
+from ``train.seed``.  --tp and --sp (tensor and sequence parallelism) are
+refused: they are not ported yet.
 
   python -m prompt_tts_tpu_torch.cli.train --data_file codes.tar \\
       --bf16 --ckpt_dir ckpt --ema_decay 0.999
   python -m prompt_tts_tpu_torch.cli.train --data_file codes.tar \\
       --streaming --remat --profile_steps 2
   python -m prompt_tts_tpu_torch.cli.train --smoke --device cpu
+  torchrun --nproc_per_node 8 -m prompt_tts_tpu_torch.cli.train \\
+      --multihost --data_file codes.tar --bf16 --ckpt_dir ckpt
+
+Under --multihost the rendezvous comes from torchrun's environment, or
+from ``PTTS_COORDINATOR`` (``host:port``), ``PTTS_NUM_PROCESSES`` and
+``PTTS_PROCESS_ID`` set for each process by hand
+(``parallel.init_distributed``).
 """
 
 import argparse
@@ -68,6 +78,21 @@ def parse_args(argv=None):
                         "the corpus into RAM (large corpora).")
     p.add_argument("--smoke", action="store_true",
                    help="Tiny config on synthetic data (sanity check).")
+    p.add_argument("--multihost", action="store_true",
+                   help="Data parallelism over processes (one per GPU, "
+                        "under torchrun or the PTTS_* variables): "
+                        "torch.distributed with DDP.")
+    p.add_argument("--per_process_data", action="store_true",
+                   help="With --multihost: each process loads only its 1/P "
+                        "slice of every batch (per-host corpus I/O scales "
+                        "down; streaming datasets never read the other "
+                        "hosts' rows).")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor-parallel degree: only 1 (not ported, "
+                        "ROADMAP.md §1 item 8b).")
+    p.add_argument("--sp", type=int, default=1,
+                   help="Sequence-parallel degree: only 1 (not ported, "
+                        "ROADMAP.md §1 item 8c).")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -79,10 +104,30 @@ def main(argv=None):
     if args.init_from_ref and args.resume:
         raise SystemExit("--init_from_ref and --resume are mutually "
                          "exclusive (resume restores params itself)")
+    if args.tp != 1:
+        raise SystemExit("--tp: tensor parallelism is not ported "
+                         "(ROADMAP.md §1 item 8b)")
+    if args.sp != 1:
+        raise SystemExit("--sp: sequence parallelism is not ported "
+                         "(ROADMAP.md §1 item 8c)")
     logging.basicConfig(
         format="%(asctime)s - %(levelname)s: %(message)s",
         level=logging.INFO, datefmt="%I:%M:%S",
     )
+    import torch
+
+    device = args.device
+    if args.multihost:
+        from prompt_tts_tpu_torch.parallel import init_distributed
+        device = init_distributed(device)
+    try:
+        return _train(args, device)
+    finally:
+        if args.multihost:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device):
     import torch
     from prompt_tts_tpu_torch.config import Config, ModelConfig, TrainConfig
     from prompt_tts_tpu_torch.data.dataset import (
@@ -141,7 +186,7 @@ def main(argv=None):
 
     trainer = Trainer(
         config, dataset, log_dir=args.log_dir, ckpt_dir=args.ckpt_dir,
-        device=args.device,
+        device=device, per_process_data=args.per_process_data,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         eval_every=args.eval_every, log_every=args.log_every,
         init_state=init_state, remat=args.remat,

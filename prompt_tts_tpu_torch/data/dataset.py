@@ -10,7 +10,9 @@ collated with numpy alone; text is phonemized once at load by the
 static-shape tokenizer.  With ``prompt_frames`` (the prompt-conditioned
 family) each batch also carries ``prompt``: a same-utterance crop of its
 latents, drawn as the JAX package draws it.  Streaming is
-``data/streaming.py``; per-process sharding is not ported.
+``data/streaming.py``.  ``batches(..., process_shard=(rank, count))``
+yields only one process's rows of each global batch (``local_rows``), for
+``Trainer(per_process_data=True)``.
 """
 
 import io
@@ -30,6 +32,31 @@ def collate_codes(codes: np.ndarray) -> np.ndarray:
     """int ``[B, n_q, T]`` -> float32 latents ``[B, T, n_q]`` in [-1, 1]."""
     out = codes.astype(np.float32) * _CODE_SCALE - 1.0
     return np.ascontiguousarray(out.transpose(0, 2, 1))
+
+
+def local_rows(idx: np.ndarray, process_shard) -> np.ndarray:
+    """This process's rows of a global batch's index set (a copy of
+    ``prompt_tts_tpu/data/dataset.py:local_rows``).
+
+    ``process_shard``: ``None`` (the whole batch) or ``(rank, count)``:
+    every process computes the same global order (the seeded shuffle) and
+    keeps rows ``[rank*b/count, (rank+1)*b/count)``."""
+    if process_shard is None:
+        return idx
+    rank, count = process_shard
+    if len(idx) % count:
+        raise ValueError(
+            f"batch size {len(idx)} not divisible by process count {count}")
+    loc = len(idx) // count
+    return idx[rank * loc:(rank + 1) * loc]
+
+
+def crop_seed(seed: int, start: int, process_shard) -> tuple:
+    """The prompt crops' seed of the batch at ``start``: ``(seed, start)``,
+    and under a shard ``(seed, start, rank)``, so each process draws its
+    own crops for its rows, as the JAX package's datasets do."""
+    return ((seed, start) if process_shard is None
+            else (seed, start, process_shard[0]))
 
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
@@ -162,10 +189,13 @@ class CodeDataset:
         return len(self.codes)
 
     def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0,
-                drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
-        """Fixed-shape numpy batches."""
+                drop_last: bool = True, process_shard=None
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        """Fixed-shape numpy batches; ``process_shard=(rank, count)``
+        yields only this process's rows of each (see :func:`local_rows`)."""
         for start, idx in _batch_order(len(self), batch_size, shuffle, seed,
                                        drop_last):
+            idx = local_rows(idx, process_shard)
             batch = {
                 "codes": collate_codes(np.stack([self.codes[i]
                                                  for i in idx])),
@@ -177,7 +207,7 @@ class CodeDataset:
             if self.prompt_frames:
                 batch["prompt"] = _crop_prompts(
                     batch["codes"], batch["code_len"], self.prompt_frames,
-                    seed=(seed, start))
+                    seed=crop_seed(seed, start, process_shard))
             yield batch
 
 
@@ -203,10 +233,12 @@ class SyntheticDataset:
         return self.codes.shape[0]
 
     def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0,
-                drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+                drop_last: bool = True, process_shard=None
+                ) -> Iterator[Dict[str, np.ndarray]]:
         # always whole batches, as in the JAX package
         for start, idx in _batch_order(len(self), batch_size, shuffle, seed,
                                        True):
+            idx = local_rows(idx, process_shard)
             batch = {
                 "codes": collate_codes(self.codes[idx]),
                 "text_ids": self.text_ids[idx],
@@ -216,5 +248,5 @@ class SyntheticDataset:
             if self.prompt_frames:
                 batch["prompt"] = _crop_prompts(
                     batch["codes"], batch["code_len"], self.prompt_frames,
-                    seed=(seed, start))
+                    seed=crop_seed(seed, start, process_shard))
             yield batch

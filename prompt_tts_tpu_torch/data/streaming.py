@@ -8,8 +8,9 @@ memory and reads each batch's codes when it is made (a native ``pread``
 when :mod:`~prompt_tts_tpu_torch.data.native` is built), collated by the
 native library in a background thread (:func:`prefetch`) while the device
 runs the step before.  Its batches are the in-RAM dataset's, prompt crops
-included (the same ``(seed, start)`` crop seed).  Per-process sharding is
-not ported.
+included (the same crop seed).  ``process_shard=(rank, count)`` yields
+one process's rows of each global batch, and the rows of the other
+processes are never read from the tar.
 """
 
 from typing import Dict, Iterator, Optional
@@ -18,7 +19,7 @@ import numpy as np
 
 from prompt_tts_tpu_torch.data import native
 from prompt_tts_tpu_torch.data.dataset import (
-    _batch_order, _crop_prompts, prefetch,
+    _batch_order, _crop_prompts, crop_seed, local_rows, prefetch,
 )
 from prompt_tts_tpu_torch.frontend.tokenizer import Tokenizer
 
@@ -67,16 +68,12 @@ class StreamingCodeDataset:
         """Whole batches (``drop_last`` is accepted for the interface and,
         as in the JAX package, always holds), made ``prefetch_depth`` ahead
         in a background thread.  Close the returned generator to stop that
-        thread early."""
-        if process_shard is not None:
-            raise NotImplementedError(
-                "StreamingCodeDataset: process_shard (per-process data) is "
-                "not ported; it waits for the parallelism item, ROADMAP.md "
-                "§1 item 8")
-
+        thread early.  ``process_shard=(rank, count)``: only this
+        process's rows of each global batch, the only rows read."""
         def gen():
             for start, idx in _batch_order(len(self), batch_size, shuffle,
                                            seed, True):
+                idx = local_rows(idx, process_shard)
                 latents = native.collate_codes(
                     np.stack([self._load_codes(i) for i in idx]))
                 batch = {
@@ -89,7 +86,7 @@ class StreamingCodeDataset:
                 if self.prompt_frames:
                     batch["prompt"] = _crop_prompts(
                         latents, batch["code_len"], self.prompt_frames,
-                        seed=(seed, start))
+                        seed=crop_seed(seed, start, process_shard))
                 yield batch
 
         return prefetch(gen(), depth=self.prefetch_depth)

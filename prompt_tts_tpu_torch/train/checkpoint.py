@@ -9,6 +9,9 @@ writes into a temporary directory and renames it, so a checkpoint on disk
 is always whole; the oldest beyond ``max_to_keep`` are deleted.
 :meth:`CheckpointManager.read_model_state` is the inference read: the
 model's weights (or their EMA) alone, mapped from the file on the CPU.
+Under data parallelism rank 0 writes and every rank waits for it at a
+barrier; every rank restores the same file, and a checkpoint written by
+several ranks loads in one process.
 """
 
 import os
@@ -19,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from prompt_tts_tpu_torch.parallel import barrier, data_rank
 from prompt_tts_tpu_torch.train.state import TrainState
 
 _STEP_DIR = re.compile(r"step_(\d+)")
@@ -44,7 +48,16 @@ class CheckpointManager:
     def save(self, state: TrainState, step: int,
              generators: Optional[Dict[str, torch.Tensor]] = None) -> str:
         """Write checkpoint ``step``; ``generators`` maps a name to a
-        ``Generator.get_state()``.  Returns its directory."""
+        ``Generator.get_state()`` (or a stack of them).  Returns its
+        directory.  Every rank calls it: rank 0 writes, and all return
+        once the checkpoint is whole on disk."""
+        if data_rank() == 0:
+            self._write(state, step, generators)
+        barrier()
+        return self._path(step)
+
+    def _write(self, state: TrainState, step: int,
+               generators: Optional[Dict[str, torch.Tensor]]) -> None:
         tmp = tempfile.mkdtemp(prefix=".tmp_step_", dir=self._dir)
         try:
             torch.save({"state": state.state_dict(), "step": int(step),
@@ -59,7 +72,6 @@ class CheckpointManager:
                 shutil.rmtree(tmp)
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._path(old))
-        return final
 
     def read_model_state(self, step: Optional[int] = None, ema: bool = False
                          ) -> Tuple[Dict[str, torch.Tensor], int]:

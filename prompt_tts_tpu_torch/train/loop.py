@@ -1,7 +1,7 @@
 """The training loop: epochs, the train step, metrics, checkpoints.
 
-Port of ``prompt_tts_tpu/train/loop.py`` (reference train.py:21-147) on one
-device, for both model families (``TTSPromptSpeaker`` when the config has
+Port of ``prompt_tts_tpu/train/loop.py`` (reference train.py:21-147) for
+both model families (``TTSPromptSpeaker`` when the config has
 ``prompt_conditioning``, else ``TTSSingleSpeaker``).  Steps are enqueued
 eagerly; the loss and gradient norm are pulled to the host (a device sync)
 every ``log_every`` steps.  ``remat`` recomputes activations in the
@@ -9,8 +9,24 @@ backward pass (``train/step.py``); ``profile_steps`` N > 0 traces steps
 2 .. 2+N with ``torch.profiler`` (host and device) into a Chrome trace
 under ``<log_dir>/trace/``, each step inside ``record_function
 ("train_step")``.  The dataset may be the in-RAM ``CodeDataset`` or the
-``StreamingCodeDataset``.  Tensor, sequence and multi-host parallelism are
-not ported.
+``StreamingCodeDataset``.
+
+Data parallelism: under a ``torch.distributed`` process group
+(``parallel.init_distributed``, the CLI's ``--multihost``) each process
+is one rank with one device, the model runs inside
+``DistributedDataParallel``, and a step of ``P`` ranks over a global
+batch computes what one process computes over the same rows.  Each rank
+collates the whole global batch and keeps its rows
+(``parallel.shard_batch``), or with ``per_process_data`` collates only
+its rows (the datasets' ``process_shard``; the prompt family's crops are
+then seeded by rank, as in the JAX package).  DDP all-reduces the
+gradients of every micro-step, so gradient accumulation folds global
+gradients into its mean and each micro-step's ``grad_norm`` is the global
+one.  Dropout draws from a generator of each rank's own, seeded from
+``(seed, rank)``; the noise, timesteps and condition drop from one that
+every rank seeds alike (``train/step.py``).  Only rank 0 writes metrics,
+traces and checkpoints; every rank restores the same checkpoint.  Tensor
+and sequence parallelism are not ported.
 """
 
 import logging
@@ -21,6 +37,7 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel as DDP
 from torch.profiler import record_function
 
 from prompt_tts_tpu_torch.config import Config
@@ -29,19 +46,31 @@ from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
 from prompt_tts_tpu_torch.models.layers import set_compute_dtype_
 from prompt_tts_tpu_torch.models.prompt_tts import TTSPromptSpeaker
 from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
+from prompt_tts_tpu_torch.parallel import (
+    data_rank, data_size, distributed, gather_objects, mean_over_ranks,
+    shard_batch, shard_local_batch,
+)
 from prompt_tts_tpu_torch.pipeline import random_init_
 from prompt_tts_tpu_torch.train.checkpoint import CheckpointManager
 from prompt_tts_tpu_torch.train.state import TrainState
 from prompt_tts_tpu_torch.train.step import (
-    eval_generator, make_eval_step, make_train_step,
+    drawing_from, eval_generator, make_eval_step, make_train_step,
 )
 from prompt_tts_tpu_torch.utils.debug import finite_or_warn
-from prompt_tts_tpu_torch.utils.metrics import MetricsWriter
+from prompt_tts_tpu_torch.utils.metrics import MetricsWriter, NullMetricsWriter
 
 log = logging.getLogger(__name__)
 
 # what the step takes of a batch; "prompt" only where the dataset makes it
 _BATCH_KEYS = ("codes", "text_ids", "text_mask", "prompt")
+
+
+def dropout_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s dropout stream: a hash of ``(seed,
+    rank)``, so ranks draw different masks for their different rows, and
+    no rank's stream is the noise stream's (seeded by ``seed``)."""
+    words = np.random.SeedSequence([seed, rank]).generate_state(2)
+    return (int(words[0]) << 31) ^ int(words[1])
 
 
 def adopt_init_state(model: torch.nn.Module,
@@ -78,8 +107,10 @@ class Trainer:
     JAX ``--bf16``).  ``log_every`` 0 means 50 on the card
     and 1 on the CPU.  ``eval_every`` > 0 runs :meth:`evaluate` on the
     train set every that many epochs.  The next batch is collated in a
-    background thread (:func:`prefetch`) while the step runs.  ``remat``
-    and ``profile_steps``: see the module docstring.
+    background thread (:func:`prefetch`) while the step runs.  ``remat``,
+    ``profile_steps`` and ``per_process_data``: see the module docstring.
+    Under a process group ``config.train.batch_size`` is the global batch
+    and must split evenly over the ranks, and ``device`` is this rank's.
     """
 
     def __init__(self, config: Config, dataset, log_dir: str,
@@ -87,7 +118,8 @@ class Trainer:
                  dtype: torch.dtype = torch.float32, eval_every: int = 0,
                  log_every: int = 0,
                  init_state: Optional[Mapping[str, torch.Tensor]] = None,
-                 remat: bool = False, profile_steps: int = 0):
+                 remat: bool = False, profile_steps: int = 0,
+                 per_process_data: bool = False):
         if log_every < 0:
             raise ValueError(f"log_every must be >= 0, got {log_every}")
         if profile_steps < 0:
@@ -97,16 +129,25 @@ class Trainer:
                 and not getattr(dataset, "prompt_frames", None)):
             raise ValueError("Trainer: a prompt-conditioned config needs a "
                              "dataset with prompt_frames (prompt crops)")
+        tcfg = config.train
+        self.rank, self.world = data_rank(), data_size()
+        if tcfg.batch_size % self.world:
+            raise ValueError(f"batch_size {tcfg.batch_size} not divisible "
+                             f"by process count {self.world}")
+        self._pshard = ((self.rank, self.world)
+                        if per_process_data and self.world > 1 else None)
+        shard = (self.rank, self.world) if distributed() else None
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.config = config
         self.dataset = dataset
         self.eval_every = eval_every
         self.log_dir = log_dir
-        self.profile_steps = profile_steps
+        self.profile_steps = profile_steps if self.rank == 0 else 0
         self._profiler = None
         self.log_every = log_every or (
             50 if self.device.type == "cuda" else 1)
-        tcfg = config.train
         model_cls = (TTSPromptSpeaker if config.model.prompt_conditioning
                      else TTSSingleSpeaker)
         self.model = model_cls(config.model, device=self.device)
@@ -119,48 +160,78 @@ class Trainer:
                            None if dtype == torch.float32 else dtype)
         self.schedule = linear_schedule(tcfg.num_train_timesteps,
                                         device=self.device)
-        self.metrics = MetricsWriter(log_dir)
+        self.metrics = (MetricsWriter(log_dir) if self.rank == 0
+                        else NullMetricsWriter(log_dir))
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
         self.steps_per_epoch = max(
             1, math.ceil(len(dataset) / tcfg.batch_size))
         self.num_training_steps = (tcfg.num_train_epochs
                                    * self.steps_per_epoch)
         self.state = TrainState(self.model, tcfg, self.num_training_steps)
-        # noise, timesteps and condition drops; dropout uses the device's
-        # default generator
+        # noise, timesteps and condition drops, alike on every rank; and
+        # this rank's dropout stream
         self.generator = torch.Generator(self.device).manual_seed(tcfg.seed)
+        self.dropout_generator = torch.Generator(self.device).manual_seed(
+            dropout_seed(tcfg.seed, self.rank))
+        # every parameter is reached by both families' losses, the
+        # condition drop included, so DDP needs no unused-parameter search
+        self.module = self.model if shard is None else DDP(
+            self.model, device_ids=([self.device.index]
+                                    if self.device.type == "cuda" else None))
         self._step_fn = make_train_step(
             self.state, self.schedule,
-            cond_dropout_prob=tcfg.cond_dropout_prob, remat=remat)
-        self._eval_fn = make_eval_step(self.model, self.schedule)
+            cond_dropout_prob=tcfg.cond_dropout_prob, remat=remat,
+            module=self.module, shard=shard)
+        self._eval_fn = make_eval_step(self.model, self.schedule, shard)
         self.global_step = 0
         self._tput_mark = None
 
+    def _batches(self, dataset, batch_size: int, **kw):
+        """``dataset``'s batches: only this rank's rows under
+        ``per_process_data``."""
+        if self._pshard is not None:
+            kw["process_shard"] = self._pshard
+        return dataset.batches(batch_size, **kw)
+
     def _to_device(self, batch: Dict[str, np.ndarray]):
+        """This rank's rows of a batch as the dataset yields it, on the
+        device."""
+        batch = (shard_batch(batch) if self._pshard is None
+                 else shard_local_batch(batch))
         return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
                 for k in _BATCH_KEYS if k in batch}
 
-    def _generator_states(self) -> Dict[str, torch.Tensor]:
-        states = {"train": self.generator.get_state()}
-        if self.device.type == "cuda":
-            states["dropout"] = torch.cuda.get_rng_state(self.device)
-        else:
-            states["dropout"] = torch.get_rng_state()
-        return states
+    def train_step(self, batch: Dict[str, np.ndarray], **inputs):
+        """One step on a batch as the dataset yields it (the global batch,
+        or this rank's rows under ``per_process_data``); ``inputs`` are
+        the loss function's ``noise`` / ``timesteps`` / ``drop`` for the
+        global batch.  Returns the step's device scalars."""
+        with drawing_from(self.dropout_generator, self.device):
+            return self._step_fn(self._to_device(batch), self.generator,
+                                 **inputs)
 
     def save(self) -> None:
-        self.ckpt.save(self.state, self.global_step,
-                       generators=self._generator_states())
+        """Checkpoint the state and the generators, every rank's dropout
+        stream among them (rank 0 writes; every rank must call it)."""
+        dropout = gather_objects(self.dropout_generator.get_state())
+        self.ckpt.save(self.state, self.global_step, generators={
+            "train": self.generator.get_state(),
+            "dropout": torch.stack(dropout)})
 
     def restore_latest(self) -> Optional[int]:
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return None
         step, gens = self.ckpt.restore(self.state)
         self.generator.set_state(gens["train"].cpu())
-        if self.device.type == "cuda":
-            torch.cuda.set_rng_state(gens["dropout"].cpu(), self.device)
+        dropout = gens["dropout"].cpu()
+        if dropout.dim() == 1:          # one process's, before the stack
+            dropout = dropout[None]
+        if len(dropout) == self.world:
+            self.dropout_generator.set_state(dropout[self.rank].clone())
         else:
-            torch.set_rng_state(gens["dropout"].cpu())
+            log.warning("checkpoint holds %d dropout streams for %d ranks: "
+                        "each rank's starts afresh", len(dropout),
+                        self.world)
         self.global_step = step
         log.info("restored checkpoint at step %d", step)
         return step
@@ -217,8 +288,9 @@ class Trainer:
             log.info("Starting epoch %d", epoch)
             t_epoch = time.time()
             pending = None
-            batches = prefetch(self.dataset.batches(
-                tcfg.batch_size, shuffle=True, seed=tcfg.seed + epoch))
+            batches = prefetch(self._batches(
+                self.dataset, tcfg.batch_size, shuffle=True,
+                seed=tcfg.seed + epoch))
             try:
                 for batch in batches:
                     # the same window as the JAX trainer: past the first
@@ -226,8 +298,7 @@ class Trainer:
                     if self.profile_steps and self.global_step == 2:
                         self._start_trace()
                     with record_function("train_step"):
-                        m = self._step_fn(self._to_device(batch),
-                                          self.generator)
+                        m = self.train_step(batch)
                     self.global_step += 1
                     if (self.profile_steps and self.global_step
                             == 2 + self.profile_steps):
@@ -257,7 +328,8 @@ class Trainer:
     def _pull_metrics(self, m) -> float:
         """Pull one step's metrics to the host (the loop's device sync),
         NaN-guard and log them, with the trainer's throughput since the
-        previous pull (host input, dispatch and device time together)."""
+        previous pull (host input, dispatch and device time together) in
+        examples of the global batch."""
         loss = float(m["loss"])
         now = time.time()
         metrics_now = {"loss": loss, "grad_norm": float(m["grad_norm"])}
@@ -280,14 +352,15 @@ class Trainer:
     def evaluate(self, dataset=None, seed: int = 0) -> float:
         """Mean deterministic eval loss over a dataset (default: the train
         set), with a fixed noise/timestep stream per batch index so losses
-        compare across checkpoints."""
+        compare across checkpoints.  Each rank takes its rows of a batch,
+        and every rank returns the global mean."""
         dataset = dataset if dataset is not None else self.dataset
         total, n = 0.0, 0
-        for i, batch in enumerate(dataset.batches(
-                self.config.train.batch_size)):
-            total += float(self._eval_fn(self._to_device(batch),
-                                         eval_generator(self.device, seed,
-                                                        i)))
+        for i, batch in enumerate(self._batches(
+                dataset, self.config.train.batch_size)):
+            loss = self._eval_fn(self._to_device(batch),
+                                 eval_generator(self.device, seed, i))
+            total += float(mean_over_ranks(loss))
             n += 1
         if n == 0:
             raise ValueError(

@@ -9,6 +9,10 @@ one clip+AdamW update every ``gradient_accumulation_steps`` micro-steps,
 and a schedule that counts updates only.  The EMA of the parameters moves
 at the update boundary only.
 
+Under data parallelism the gradients reach :meth:`TrainState.apply_gradients`
+already averaged over the ranks (DDP all-reduces every micro-step's), so
+the clip, ``grad_norm`` and the accumulated mean are the global ones.
+
 The optimizer is a stock ``torch.optim.AdamW`` (fused on the card), the
 same update as optax's ``adamw``: ``p -= lr * (m_hat / (sqrt(v_hat) + eps)
 + wd * p)``.  Parameters, gradients, moments and the EMA are f32; a bf16

@@ -6,13 +6,24 @@ draw per-example noise, timesteps and (with classifier-free guidance
 training) the condition drop from an explicit ``torch.Generator``, run the
 forward process, predict ε with dropout on, take the MSE in f32, backward
 (through the attention-backward kernel on the card), then
-:meth:`TrainState.apply_gradients`.  Dropout draws from the device's
-default generator, which the checkpoint saves beside the step's own.
+:meth:`TrainState.apply_gradients`.
 
 Both families: a batch with a ``prompt`` key (the prompt-conditioned
 family's voice-prompt latents) passes it to the model, and the condition
 drop nulls the text and the prompt together.  For parity tests the noise,
 timesteps and drop can be passed in instead of drawn.
+
+Data parallelism (``shard=(rank, size)``, the trainer under a process
+group): the batch holds this rank's rows of a global batch of ``size``
+times as many.  The noise, timesteps and drop are drawn for the global
+batch from the generator every rank seeds alike, and each rank keeps its
+rows, so ``size`` ranks draw what one process draws; given ones are the
+global batch's too.  The model passed as ``module`` (the
+``DistributedDataParallel`` wrapper) averages the gradients over the
+ranks in its backward hooks, and the step's ``loss`` is the mean over
+the ranks.  Dropout draws from the device's default generator, which the
+trainer sets to a stream of its own for each rank
+(:func:`drawing_from`).
 
 ``remat=True`` (``--remat``, JAX's ``jax.checkpoint``) runs each block
 of the model (every resnet block, spatial transformer, and text or
@@ -36,7 +47,7 @@ without remat.  The ``rbg`` dropout stream is not ported.
 
 import contextlib
 import functools
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -45,19 +56,55 @@ from torch.utils.checkpoint import checkpoint
 from prompt_tts_tpu_torch.diffusion.schedule import (
     DiffusionSchedule, add_noise,
 )
+from prompt_tts_tpu_torch.parallel import mean_over_ranks
 from prompt_tts_tpu_torch.train.state import TrainState
+
+Shard = Optional[Tuple[int, int]]
+
+
+def _rows(x: torch.Tensor, local: int, shard: Shard) -> torch.Tensor:
+    """This rank's rows of ``x``, a draw for the global batch."""
+    rank, size = shard or (0, 1)
+    if x.shape[0] != local * size:
+        raise ValueError(f"expected {local * size} rows (the global "
+                         f"batch), got {x.shape[0]}")
+    return x[rank * local:(rank + 1) * local]
 
 
 def _draw(codes: torch.Tensor, num_train_timesteps: int,
-          generator: Optional[torch.Generator], noise, timesteps):
+          generator: Optional[torch.Generator], noise, timesteps,
+          shard: Shard = None):
+    """The noise, then the timesteps, of the global batch (drawn unless
+    given), cut to this rank's rows of ``codes``."""
     B = codes.shape[0]
+    G = B * (shard[1] if shard else 1)
     if noise is None:
-        noise = torch.randn(codes.shape, generator=generator,
-                            device=codes.device, dtype=codes.dtype)
+        noise = torch.randn((G,) + tuple(codes.shape[1:]),
+                            generator=generator, device=codes.device,
+                            dtype=codes.dtype)
     if timesteps is None:
-        timesteps = torch.randint(0, num_train_timesteps, (B,),
+        timesteps = torch.randint(0, num_train_timesteps, (G,),
                                   generator=generator, device=codes.device)
-    return noise, timesteps
+    return _rows(noise, B, shard), _rows(timesteps, B, shard)
+
+
+@contextlib.contextmanager
+def drawing_from(generator: torch.Generator, device: torch.device):
+    """Run the block with ``device``'s default generator (the one dropout
+    draws from) in ``generator``'s state, then carry the state the block
+    leaves back into ``generator`` and give the default its own back."""
+    if device.type == "cuda":
+        get = functools.partial(torch.cuda.get_rng_state, device)
+        put = functools.partial(torch.cuda.set_rng_state, device=device)
+    else:
+        get, put = torch.get_rng_state, torch.set_rng_state
+    saved = get()
+    put(generator.get_state())
+    try:
+        yield
+    finally:
+        generator.set_state(get())
+        put(saved)
 
 
 def _mse(pred: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
@@ -125,7 +172,7 @@ def _model_fn(model: nn.Module, remat: bool) -> Callable:
 
 def make_loss_fn(model: nn.Module, schedule: DiffusionSchedule,
                  cond_dropout_prob: float = 0.0,
-                 remat: bool = False) -> Callable:
+                 remat: bool = False, shard: Shard = None) -> Callable:
     """The DDPM ε-MSE over one batch: ``codes [B,T,C]`` in [-1, 1],
     ``text_ids [B,S]``, ``text_mask [B,S]`` and, for the prompt family,
     ``prompt [B,Tp,C]``.  ``cond_dropout_prob`` > 0 nulls the conditioning
@@ -136,7 +183,8 @@ def make_loss_fn(model: nn.Module, schedule: DiffusionSchedule,
     ``loss_fn(batch, generator, noise=None, timesteps=None, drop=None)``
     draws noise, then timesteps, then the drop from ``generator``, unless
     they are given.  ``remat`` recomputes the activations in the backward
-    pass (see the module docstring).
+    pass; ``shard`` is this rank's place on the data axis (see the module
+    docstring).
     """
     model_fn = _model_fn(model, remat)
 
@@ -146,14 +194,17 @@ def make_loss_fn(model: nn.Module, schedule: DiffusionSchedule,
                 timesteps: Optional[torch.Tensor] = None,
                 drop: Optional[torch.Tensor] = None) -> torch.Tensor:
         codes = batch["codes"]
+        B = codes.shape[0]
         noise, timesteps = _draw(codes, schedule.num_train_timesteps,
-                                 generator, noise, timesteps)
+                                 generator, noise, timesteps, shard)
         noisy = add_noise(schedule, codes, noise, timesteps)
         cond = _condition(batch)
         if cond_dropout_prob > 0.0:
             if drop is None:
-                drop = torch.rand((codes.shape[0], 1), generator=generator,
+                drop = torch.rand((B * (shard[1] if shard else 1), 1),
+                                  generator=generator,
                                   device=codes.device) < cond_dropout_prob
+            drop = _rows(drop, B, shard)
             # [B, 1] broadcasts over ids and mask [B, S]; the prompt
             # [B, Tp, C] takes it as [B, 1, 1]
             cond = tuple(torch.where(drop.view(-1, *[1] * (c.dim() - 1)),
@@ -166,11 +217,15 @@ def make_loss_fn(model: nn.Module, schedule: DiffusionSchedule,
 
 def make_train_step(state: TrainState, schedule: DiffusionSchedule,
                     cond_dropout_prob: float = 0.0,
-                    remat: bool = False) -> Callable:
+                    remat: bool = False, module: Optional[nn.Module] = None,
+                    shard: Shard = None) -> Callable:
     """``train_step(batch, generator, **inputs) -> {"loss", "grad_norm"}``
     (device scalars: reading them is the host sync).  ``inputs`` are the
-    loss function's ``noise`` / ``timesteps`` / ``drop``."""
-    loss_fn = make_loss_fn(state.model, schedule, cond_dropout_prob, remat)
+    loss function's ``noise`` / ``timesteps`` / ``drop``.  ``module`` runs
+    the forward in place of ``state.model`` (its DDP wrapper); with
+    ``shard`` the loss is the mean over the ranks."""
+    loss_fn = make_loss_fn(module or state.model, schedule,
+                           cond_dropout_prob, remat, shard)
 
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
@@ -179,7 +234,9 @@ def make_train_step(state: TrainState, schedule: DiffusionSchedule,
         loss = loss_fn(batch, generator, **inputs)
         loss.backward()
         grad_norm = state.apply_gradients()
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        loss = loss.detach()
+        return {"loss": mean_over_ranks(loss) if shard else loss,
+                "grad_norm": grad_norm}
 
     return train_step
 
@@ -191,9 +248,12 @@ def eval_generator(device, seed: int, i: int) -> torch.Generator:
     return torch.Generator(device).manual_seed(seed * 1_000_003 + i)
 
 
-def make_eval_step(model: nn.Module, schedule: DiffusionSchedule):
+def make_eval_step(model: nn.Module, schedule: DiffusionSchedule,
+                   shard: Shard = None):
     """Deterministic eval loss (dropout off): noise and timesteps from the
-    caller's ``generator``, so a fixed seed gives comparable losses."""
+    caller's ``generator``, so a fixed seed gives comparable losses.  With
+    ``shard`` they are drawn for the global batch and the loss is this
+    rank's rows' mean."""
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor],
                   generator: Optional[torch.Generator] = None,
@@ -202,7 +262,7 @@ def make_eval_step(model: nn.Module, schedule: DiffusionSchedule):
         model.eval()
         codes = batch["codes"]
         noise, timesteps = _draw(codes, schedule.num_train_timesteps,
-                                 generator, noise, timesteps)
+                                 generator, noise, timesteps, shard)
         noisy = add_noise(schedule, codes, noise, timesteps)
         return _mse(model(noisy, timesteps, *_condition(batch)), noise)
     return eval_step

@@ -2,6 +2,8 @@
 
 Port of ``prompt_tts_tpu/utils/metrics.py``, JSONL mirror only: the port
 writes no TensorBoard event files, so it needs no tensorboard package.
+``NullMetricsWriter`` is what the ranks other than 0 write with under data
+parallelism: nothing.
 """
 
 import json
@@ -26,3 +28,22 @@ class MetricsWriter:
 
     def close(self) -> None:
         self._jsonl.close()
+
+
+class NullMetricsWriter:
+    """A writer with :class:`MetricsWriter`'s interface that writes
+    nothing: the ranks other than 0 take it, so only rank 0 writes files
+    (the reference's ``is_main_process`` gating, reference
+    train.py:75,140)."""
+
+    def __init__(self, log_dir: str):
+        self._log_dir = log_dir
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -4,8 +4,9 @@
 The native library (built here with ``g++`` under ``build/native/``) and
 its numpy fallbacks against ``tarfile`` and numpy; ``StreamingCodeDataset``
 batches bit-equal to the port's in-RAM ``CodeDataset`` and to the JAX
-package's ``StreamingCodeDataset`` (prompt crops included); the per-process
-shard refused; the streaming generator's thread stops when it is closed;
+package's ``StreamingCodeDataset`` (prompt crops included); both datasets'
+per-process shards against the JAX package's; the streaming generator's
+thread stops when it is closed;
 ``cli.train --streaming`` on the CPU.
 """
 
@@ -134,10 +135,37 @@ def test_batches_equal_jax_streaming(corpus_tar, prompt_frames, monkeypatch):
     _assert_same(ours.batches(**kw), theirs.batches(**kw))
 
 
-def test_process_shard_is_refused(corpus_tar):
-    stream = StreamingCodeDataset(corpus_tar, max_seq_length=32)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        stream.batches(2, process_shard=(0, 2))
+@pytest.mark.parametrize("prompt_frames", [None, 16])
+@pytest.mark.parametrize("rank", [0, 1])
+def test_process_shard_is_jax(corpus_tar, rank, prompt_frames, monkeypatch):
+    """Rank ``rank`` of 2: the in-RAM and streaming datasets' shards are
+    bit-equal to the JAX package's datasets under the same shard (prompt
+    crops seeded by rank); without prompts, the ranks' rows concatenated
+    are the whole batch."""
+    from prompt_tts_tpu.data import dataset as jax_dataset
+    monkeypatch.setattr(jax_streaming.native, "get_lib", lambda: None)
+    kw = dict(batch_size=2, shuffle=True, seed=9)
+    shard = dict(kw, process_shard=(rank, 2))
+    ram = CodeDataset(corpus_tar, max_seq_length=32,
+                      prompt_frames=prompt_frames)
+    stream = StreamingCodeDataset(corpus_tar, max_seq_length=32,
+                                  prompt_frames=prompt_frames)
+    jax_ram = jax_dataset.CodeDataset(corpus_tar, max_seq_length=32,
+                                      prompt_frames=prompt_frames)
+    jax_stream = jax_streaming.StreamingCodeDataset(
+        corpus_tar, max_seq_length=32, prompt_frames=prompt_frames)
+    _assert_same(ram.batches(**shard), jax_ram.batches(**shard))
+    _assert_same(stream.batches(**shard), jax_stream.batches(**shard))
+    _assert_same(stream.batches(**shard), ram.batches(**shard))
+    if prompt_frames is None:
+        whole = list(ram.batches(**kw))
+        parts = [list(stream.batches(**dict(kw, process_shard=(r, 2))))
+                 for r in (0, 1)]
+        for b, p0, p1 in zip(whole, *parts):
+            assert p0["codes"].shape[0] == 1
+            for k in b:
+                np.testing.assert_array_equal(
+                    np.concatenate([p0[k], p1[k]]), b[k], err_msg=k)
 
 
 def test_closing_the_generator_stops_its_thread(corpus_tar):
