@@ -120,21 +120,36 @@ Phases, each printed as one JSON object per line:
   14. export: ``cli.export_checkpoint`` of the flagship's checkpoint, read
      back bit for bit, then ``cli.synthesize --ref_ckpt`` against an
      in-process ``Synthesizer`` on the checkpoint's state, bit for bit.
-  15. ddpm: ``ddpm_sample`` with the flagship denoiser, 4 requests, bf16,
+  15. ddpm: ``ddpm_sample`` with the flagship's widths at one layer a
+     block (``DDPM_LAYERS_PER_BLOCK``), 4 requests, bf16,
      1,000 steps and the decode (ms a step, x real time, the idle share
      over a 100-step schedule); a tiny config in f32 on the card against
      the CPU with injected noise.
+  15b. codec_bf16: the same seeded codes [4, 8, 900] through the f32
+     codec and the bf16 one over the same parameters
+     (``Synthesizer(codec_dtype=torch.bfloat16)``'s decode): warm ms of
+     each by CUDA events, the largest difference and the mel distance,
+     kernel #4 launched in both.
+  15c. unet_variants: ``ModelConfig()`` widths with the fourier time
+     embedding, the avg-pool downsample and the conv-transpose upsample at
+     896 frames: ``Synthesizer`` DDIM-10, 4 requests, bf16 (launches,
+     wavs); one UNet forward on the kernels against the plain versions;
+     warm DDIM-50 walls of the variant and the flagship in turns; a forward
+     with ``class_labels`` in each class-embedding mode, held the same way;
+     3 bf16 ``Trainer`` steps at B=32 with weight decay (kernels #1 and #2,
+     the Fourier buffer bit-unchanged).
   16. profile: ``cli.profile --stages cond,denoise,decode,train,synth
      --time`` at full width (its table printed), and a tiny config's FLOPs
      on the card against the CPU.
   17. ddp_nccl: ``parallel.init_distributed`` over NCCL at world size 1
-     in this process; the flagship, bf16, batch 32, 3 steps through
+     in this process; the flagship's widths at one layer a block
+     (``DDP_LAYERS_PER_BLOCK``), bf16, batch 32, 3 steps through
      ``Trainer`` under DDP against the plain trainer run twice (DDP's loss
      gap at most twice the card's own noise floor + 1e-6, kernels #1 and
      #2 launched), and the prompt family under DDP (batch 4, 2 steps:
      DDP raises on a parameter the loss left unreached).
-  18. ddp_two_ranks: 2 processes sharing the card over gloo, global
-     batch 32: one f32 step's all-reduced gradient and loss against one
+  18. ddp_two_ranks: 2 processes sharing the card over gloo, the same
+     config, global batch 32: one f32 step's all-reduced gradient and loss against one
      process on the same rows (1e-4 and 1e-5 relative), 3 bf16 steps
      replicated and with ``per_process_data`` (within 2e-2 of one
      process), rank 0's checkpoint read back through
@@ -143,8 +158,8 @@ Phases, each printed as one JSON object per line:
   19. torchrun: ``torchrun --standalone --nproc_per_node 1 -m
      prompt_tts_tpu_torch.cli.train --multihost --smoke`` on ``TINY``:
      exit 0 and finite losses.
-Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line.  Any failure raises (non-zero exit); without CUDA it exits non-zero
+Then the phases' wall seconds (``phase_walls_s``), one
+``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.  Any failure raises (non-zero exit); without CUDA it exits non-zero
 before any result.
 
     python3 chip_smoke.py --lstm-times --rvq-times --resnet-times \
@@ -3152,6 +3167,11 @@ TINY = dict(block_out_channels=(64, 64, 128, 128), cross_attention_dim=64,
 # the model-level contract through the 1,000 steps; a code may differ only
 # where the latent is this close to a rounding boundary
 DDPM_TOL = 5e-4
+# The 1,000-step DDPM run at the flagship's widths and one layer a block
+# (ModelConfig() has two): it checks the sampler's launches and time a
+# step, and keeps the whole script within its time since the UNet's
+# variants and the bf16 decode joined it.
+DDPM_LAYERS_PER_BLOCK = 1
 # cli.profile's FLOPs of one stage, card (FlopCounterMode + the kernels'
 # formulas) against CPU (FlopCounterMode alone): relative
 PROFILE_FLOP_RTOL = 1e-2
@@ -3559,9 +3579,9 @@ def _near_boundary(latents, tol):
 
 
 def phase_ddpm(smi):
-    """The ancestral DDPM sampler with the flagship denoiser
-    (``ModelConfig()``, random seeded weights, bf16, cross-attention k/v
-    hoisted as ``Synthesizer`` does) at 4 requests over all 1,000 steps,
+    """The ancestral DDPM sampler with the flagship's widths at
+    ``DDPM_LAYERS_PER_BLOCK`` (random seeded weights, bf16, cross-attention
+    k/v hoisted as ``Synthesizer`` does) at 4 requests over all 1,000 steps,
     then the f32 decode: finite latents, the launches, ms a step, x real
     time, and the idle share of the same step over a 100-step schedule.
     Then the tiny config in f32 on the card against the CPU port, with the
@@ -3572,12 +3592,16 @@ def phase_ddpm(smi):
     from prompt_tts_tpu_torch.diffusion.ddpm import ddpm_sample
     from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
     from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
-    from prompt_tts_tpu_torch.models.unet1d import cross_attention_kv
+    from prompt_tts_tpu_torch.models.unet1d import (
+        cross_attention_kv, cross_attn_sites,
+    )
     from prompt_tts_tpu_torch.pipeline import (
         Synthesizer, full_f32, latents_to_codes, random_init_,
     )
     dev = torch.device("cuda")
-    synth = Synthesizer(Config(), device="cuda", dtype=torch.bfloat16)
+    cfg = Config(model=dataclasses.replace(
+        ModelConfig(), layers_per_block=DDPM_LAYERS_PER_BLOCK))
+    synth = Synthesizer(cfg, device="cuda", dtype=torch.bfloat16)
     ids, mask = synth.tokenizer.encode_batch(TEXTS)
     ids, mask = (torch.from_numpy(a).to(dev) for a in (ids, mask))
     x_T = synth.noise(0, N_REQUESTS).to(dev)
@@ -3605,8 +3629,9 @@ def phase_ddpm(smi):
         prof = profile_step(lambda: ddpm_sample(
             eps, short, x_T, generator=torch.Generator(dev).manual_seed(0)),
             cpu=False)
-    n_res = len(resnet_shapes(Config().model))
-    want = want_counts(attention_fwd=32 * T, resnet=n_res * T)
+    n_res = len(resnet_shapes(cfg.model))
+    n_attn = 2 * len(list(cross_attn_sites(cfg.model)))
+    want = want_counts(attention_fwd=n_attn * T, resnet=n_res * T)
     finite = bool(torch.isfinite(lat).all()) and bool(
         torch.isfinite(wav).all())
     del synth, ctx, kv
@@ -3644,7 +3669,8 @@ def phase_ddpm(smi):
             ((codes_card - codes_cpu).abs() <= 1).all()),
     }
     audio_s = N_REQUESTS * AUDIO_S
-    emit({"phase": "ddpm", "what": f"ddpm_sample ModelConfig() bf16 "
+    emit({"phase": "ddpm", "what": f"ddpm_sample ModelConfig() widths at "
+          f"{DDPM_LAYERS_PER_BLOCK} layer a block, bf16 "
           f"B={N_REQUESTS}, {T} steps, then the f32 decode; tiny config f32 "
           f"card vs CPU with injected noise", "checks": checks,
           "sample_s": sample_s, "ms_per_step": sample_s * 1e3 / T,
@@ -3658,6 +3684,290 @@ def phase_ddpm(smi):
     if not all(checks.values()):
         raise AssertionError(f"ddpm checks failed: {checks}")
     return launches
+
+
+# The UNet's optional variants at the flagship widths and depth: the Fourier
+# time embedding, the avg-pool downsample and the conv-transpose upsample,
+# which is exactly 2x, so the window is 896 frames (900 -> 450 -> 225 -> 113
+# does not double back to 225; JAX's assert refuses 900 too).
+VARIANTS = dict(time_embedding_type="fourier", downsample_avg_pool=True,
+                upsample_conv_transpose=True, sample_size=896)
+VARIANT_STEPS, VARIANT_TRAIN_STEPS = 10, 3
+# each class-embedding mode's config and labels for N_REQUESTS rows
+CLASS_MODES = {
+    "table": dict(num_class_embeds=10),
+    "timestep": dict(class_embed_type="timestep"),
+    "identity": dict(class_embed_type="identity"),
+    "projection": dict(class_embed_type="projection",
+                       projection_class_embeddings_input_dim=12),
+}
+# A whole bf16 UNet forward on the kernels against the plain versions
+# (flash_attention_plain, the module arithmetic of the resnet blocks), same
+# weights and inputs, relative Frobenius error of eps: the bf16 tolerance the
+# resnet phase holds one block to (the resnet kernel rounds h once where the
+# module rounds it twice, a bf16 ulp being 2^-8 relative), over the forward.
+UNET_FRO_BF16 = RESNET_TOL_BF16
+# The bf16 codec decode against the f32 decode of the same codes, relative
+# Frobenius: bf16 activations and weights through 15 conv layers (1.1e-2 on
+# the CPU, tests/test_torch_codec_bf16.py).
+CODEC_BF16_FRO = 3e-2
+
+
+@contextlib.contextmanager
+def _plain_unet():
+    """The UNet's attention and resnet blocks on their plain versions
+    inside the scope: ``flash_attention_plain`` (what the bf16 kernel
+    computes, rounded where it rounds) and the blocks' module arithmetic;
+    no kernel launches."""
+    import torch.nn.functional as F
+    from prompt_tts_tpu_torch.models import unet1d
+    from prompt_tts_tpu_torch.ops.attention import flash_attention_plain
+    from prompt_tts_tpu_torch.ops.cuda import attention as cuda_attention
+    from prompt_tts_tpu_torch.ops.resnet import resnet_block_plain
+    kernels = cuda_attention.flash_attention, unet1d.resnet_block
+
+    def attention(q, k, v, bias=None, return_lse=False):
+        assert not return_lse
+        return flash_attention_plain(q, k, v, bias)
+
+    def resnet(block, x, temb):
+        return resnet_block_plain(block, x, block.time_emb_proj(F.silu(temb)))
+    cuda_attention.flash_attention, unet1d.resnet_block = attention, resnet
+    try:
+        yield
+    finally:
+        cuda_attention.flash_attention, unet1d.resnet_block = kernels
+
+
+def _rel_fro(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def phase_unet_variants(smi, tmp):
+    """The UNet's optional variants at full width (``VARIANTS``): DDIM-
+    ``VARIANT_STEPS`` synthesis of 4 requests in bf16 through
+    ``Synthesizer`` (its launches, the wavs), one UNet forward on the kernels
+    against the plain versions on the same weights; warm DDIM-50 walls of
+    the variant and the flagship in turns; a full-width UNet forward with
+    ``class_labels`` in each class-embedding mode, held the same way (and
+    the labels conditioning it); ``VARIANT_TRAIN_STEPS`` bf16 ``Trainer``
+    steps at B=32 with weight decay: finite losses, kernels #1 and #2
+    launched, the Fourier buffer bit-unchanged.  Returns the launches."""
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from prompt_tts_tpu_torch.data.dataset import SyntheticDataset
+    from prompt_tts_tpu_torch.models.layers import cast_compute_
+    from prompt_tts_tpu_torch.models.unet1d import UNet1DCondition
+    from prompt_tts_tpu_torch.ops.cuda.attention_bwd import LAUNCHES_PER_CALL
+    from prompt_tts_tpu_torch.pipeline import Synthesizer, random_init_
+    from prompt_tts_tpu_torch.train.loop import Trainer
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    vcfg = ModelConfig(**VARIANTS)
+    T = vcfg.sample_size
+    n_res = len(resnet_shapes(vcfg))
+    synth = Synthesizer(Config(model=vcfg), device="cuda",
+                        dtype=torch.bfloat16,
+                        num_inference_steps=VARIANT_STEPS)
+    torch.cuda.synchronize()
+    zero_counts()
+    wavs, codes = synth.synthesize(TEXTS, seed=0, return_codes=True)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = want_counts(attention_fwd=TEXT_LAYERS + 32 * VARIANT_STEPS,
+                       resnet=n_res * VARIANT_STEPS, lstm=2)
+
+    # one UNet forward, kernels against plain versions
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((N_REQUESTS, T, vcfg.in_channels), generator=g).to(dev)
+    t = torch.tensor([10, 250, 500, 999], device=dev)
+    ids, mask = synth.tokenizer.encode_batch(TEXTS)
+    unet = synth.model.unet
+    with torch.no_grad():
+        ctx = synth.model.encode_text(torch.from_numpy(ids).to(dev),
+                                      torch.from_numpy(mask).to(dev))
+        zero_counts()
+        eps = unet(x, t, ctx)
+        fwd_launches = counts()
+        with _plain_unet():
+            eps_plain = unet(x, t, ctx)
+    unet_err = _rel_fro(eps, eps_plain)
+
+    # warm DDIM-50 walls, the flagship and the variant in turns
+    flagship = Synthesizer(device="cuda", dtype=torch.bfloat16,
+                           num_inference_steps=STEPS)
+    synth.num_inference_steps = STEPS
+    walls = {"flagship": [], "variant": []}
+    for name in ("flagship", "variant"):
+        (flagship if name == "flagship" else synth).synthesize(TEXTS)
+    for name in ("flagship", "variant", "variant", "flagship"):
+        t0 = time.perf_counter()
+        (flagship if name == "flagship" else synth).synthesize(TEXTS)
+        walls[name].append(time.perf_counter() - t0)
+    base_sd = {k: v for k, v in unet.state_dict().items()}
+    del flagship, synth, unet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # class labels: every mode at full width, kernels against plain
+    labels = {
+        "table": torch.tensor([1, 3, 5, 7]),
+        "timestep": torch.tensor([1, 250, 500, 999]),
+        "identity": torch.randn((N_REQUESTS, 2 * vcfg.block_out_channels[0]),
+                                generator=g),
+        "projection": torch.randn((N_REQUESTS, 12), generator=g)}
+    class_err, class_moved, class_loaded = {}, {}, True
+    class_launches = dict.fromkeys(KERNELS, 0)
+    for mode, kw in CLASS_MODES.items():
+        m = UNet1DCondition(dataclasses.replace(vcfg, **kw), device="cuda")
+        missing, extra = m.load_state_dict(base_sd, strict=False)
+        class_loaded &= not extra and all(
+            k.startswith("class_embedding.") for k in missing)
+        if m.class_embedding is not None:
+            random_init_(m.class_embedding, torch.Generator().manual_seed(5))
+        cast_compute_(m.eval(), torch.bfloat16)
+        lab = labels[mode].to(dev)
+        with torch.no_grad():
+            zero_counts()
+            out = m(x, t, ctx, class_labels=lab)
+            out0 = m(x, t, ctx, class_labels=torch.zeros_like(lab))
+            for k, v in counts().items():
+                class_launches[k] += v
+            with _plain_unet():
+                ref = m(x, t, ctx, class_labels=lab)
+        class_err[mode] = _rel_fro(out, ref)
+        class_moved[mode] = _rel_fro(out0, out)
+        del m
+    del base_sd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 training with weight decay: the Fourier buffer stays put
+    cfg = Config(model=vcfg, train=TrainConfig(
+        batch_size=TRAIN_BATCHES[0], learning_rate=1e-4, weight_decay=1e-2,
+        lr_warmup_steps=0, lr_scheduler="constant", num_train_epochs=1))
+    ds = SyntheticDataset(n=TRAIN_BATCHES[0] * VARIANT_TRAIN_STEPS, frames=T,
+                          max_seq_length=vcfg.cmu_seq_len)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, ds, log_dir=os.path.join(tmp, "variant_train"),
+                      device="cuda", dtype=torch.bfloat16)
+    fourier = trainer.model.unet.time_proj.weight.clone()
+    lin = trainer.model.unet.time_embedding.linear_1.weight.detach().clone()
+    batches = ds.batches(TRAIN_BATCHES[0])
+    torch.cuda.synchronize()
+    zero_counts()
+    losses, step_s = [], []
+    for _ in range(VARIANT_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(next(batches))["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    train_launches = counts()
+    frozen = torch.equal(trainer.model.unet.time_proj.weight, fourier)
+    moved = not torch.equal(
+        trainer.model.unet.time_embedding.linear_1.weight, lin)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    calls = ATTN_CALLS * VARIANT_TRAIN_STEPS
+    checks = {
+        "wav": wavs.shape == (N_REQUESTS, T * 320)
+        and bool(np.isfinite(wavs).all()),
+        "codes": codes.shape == (N_REQUESTS, 8, T)
+        and bool(codes.min() >= 0 and codes.max() <= 1023),
+        "synth_launches": launches == want,
+        "forward_launches": fwd_launches == want_counts(
+            attention_fwd=32, resnet=n_res),
+        "unet_kernel_vs_plain": unet_err <= UNET_FRO_BF16,
+        "class_weights_carried": class_loaded,
+        "class_kernel_vs_plain": all(
+            e <= UNET_FRO_BF16 for e in class_err.values()),
+        "labels_condition": all(v > 0 for v in class_moved.values()),
+        "class_launches": class_launches == want_counts(
+            attention_fwd=2 * 32 * len(CLASS_MODES),
+            resnet=2 * n_res * len(CLASS_MODES)),
+        "train_finite": all(map(math.isfinite, losses)),
+        "train_launches": train_launches == want_counts(
+            attention_fwd=calls, attention_bwd=LAUNCHES_PER_CALL * calls),
+        "fourier_frozen": frozen and moved,
+    }
+    emit({"phase": "unet_variants", "what": f"ModelConfig() widths with "
+          f"the fourier time embedding, avg-pool downsample and "
+          f"conv-transpose upsample, sample_size {T} (the conv-transpose "
+          f"upsample is exactly 2x: 900 -> 450 -> 225 -> 113 does not double "
+          f"back to 225, and JAX refuses 900 too): Synthesizer DDIM-"
+          f"{VARIANT_STEPS} {N_REQUESTS} requests bf16; one UNet forward and "
+          f"one per class-embedding mode, kernels vs plain; "
+          f"{VARIANT_TRAIN_STEPS} bf16 Trainer steps at B={TRAIN_BATCHES[0]} "
+          f"with weight decay 1e-2", "checks": checks,
+          "launches": launches, "want_launches": want,
+          "unet_rel_fro": unet_err, "class_rel_fro": class_err,
+          "class_labels_move_rel_fro": class_moved, "tol": UNET_FRO_BF16,
+          "ddim50_warm_wall_s": walls,
+          "x_realtime_variant": N_REQUESTS * T / 75 / statistics.median(
+              walls["variant"]),
+          "train_loss": losses, "train_step_s": step_s,
+          "train_peak_gib": peak, "phase_s": time.perf_counter() - t_phase,
+          "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"unet_variants checks failed: {checks}")
+    return {k: launches[k] + fwd_launches[k] + class_launches[k]
+            + train_launches[k] for k in KERNELS}
+
+
+def phase_codec_bf16(smi):
+    """The same seeded codes ``[4, 8, 900]`` through the f32 codec and the
+    bf16 one over its parameters (``CodecRunner.at_dtype``): each decode's
+    warm time by CUDA events, the largest difference, the mel distance
+    (``utils/mel.py``), and kernel #4 launched in both.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.pipeline import CodecRunner
+    from prompt_tts_tpu_torch.utils.mel import log_mel
+    runner = CodecRunner("cuda")
+    fast = runner.at_dtype(torch.bfloat16)
+    codes = torch.randint(0, 1024, (N_REQUESTS, 8, 900),
+                          generator=torch.Generator().manual_seed(3)).cuda()
+    wavs, launches = {}, {}
+    for name, r in (("f32", runner), ("bf16", fast)):
+        torch.cuda.synchronize()
+        zero_counts()
+        wavs[name] = r.decode(codes)
+        torch.cuda.synchronize()
+        launches[name] = counts()
+    ms = {name: cuda_ms(lambda r=r: r.decode(codes), 5)
+          for name, r in (("f32", runner), ("bf16", fast),
+                          ("f32_again", runner), ("bf16_again", fast))}
+    a, b = (wavs[k].cpu().numpy() for k in ("f32", "bf16"))
+    mel = float(np.mean([np.abs(log_mel(x) - log_mel(y)).mean()
+                         for x, y in zip(a, b)]))
+    err = float(np.abs(a - b).max())
+    fro = _rel_fro(wavs["bf16"], wavs["f32"])
+    shared = all(p.data_ptr() == q.data_ptr() for p, q in zip(
+        runner.codec.parameters(), fast.codec.parameters()))
+    want = want_counts(lstm=2)
+    checks = {
+        "shape": a.shape == b.shape == (N_REQUESTS, 900 * 320),
+        "finite": bool(np.isfinite(b).all()),
+        "f32_out": wavs["bf16"].dtype == torch.float32,
+        "lstm_launches": launches["f32"] == launches["bf16"] == want,
+        "shared_params": shared,
+        "bf16_near_f32": fro <= CODEC_BF16_FRO,
+    }
+    emit({"phase": "codec_bf16", "what": f"CodecRunner decode of the same "
+          f"seeded codes [{N_REQUESTS}, 8, 900] in f32 and in bf16 over the "
+          f"same parameters", "checks": checks, "decode_ms": ms,
+          "max_abs_diff": err, "rel_fro": fro, "tol": CODEC_BF16_FRO,
+          "mel_distance": mel, "max_abs_wav": float(np.abs(a).max()),
+          "launches": launches, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"codec_bf16 checks failed: {checks}")
+    del runner, fast
+    return {k: launches["f32"][k] + launches["bf16"][k] for k in KERNELS}
 
 
 def phase_profile(smi, tmp, train_batch):
@@ -3731,6 +4041,12 @@ def phase_profile(smi, tmp, train_batch):
 # rounding of the bf16 compute over three updates)
 DDP_BATCH = 32
 DDP_STEPS = 3
+# The DDP phases check DDP's mechanics (the all-reduced gradients, bit
+# equality with one process), which do not depend on depth: the flagship's
+# widths at one layer a block (ModelConfig() has two), which keeps the whole
+# script within its time since the UNet's variants and the bf16 decode
+# joined it.
+DDP_LAYERS_PER_BLOCK = 1
 DDP_F32_GRAD_RTOL = 1e-4
 DDP_F32_LOSS_RTOL = 1e-5
 DDP_BF16_LOSS_RTOL = 2e-2
@@ -3745,13 +4061,15 @@ def _free_port():
 
 
 def _ddp_config(dropout=True, **train):
-    """The flagship ``ModelConfig()`` at the DDP phases' batch, one epoch;
-    ``dropout`` False turns the text encoder's off, so that two ranks and
-    one process draw alike."""
+    """The flagship ``ModelConfig()`` at ``DDP_LAYERS_PER_BLOCK`` and the
+    DDP phases' batch, one epoch; ``dropout`` False turns the text
+    encoder's off, so that two ranks and one process draw alike."""
     from prompt_tts_tpu_torch.config import Config
     cfg = Config()
-    model = (cfg.model if dropout
-             else dataclasses.replace(cfg.model, text_encoder_dropout=0.0))
+    model = dataclasses.replace(cfg.model,
+                                layers_per_block=DDP_LAYERS_PER_BLOCK)
+    if not dropout:
+        model = dataclasses.replace(model, text_encoder_dropout=0.0)
     return dataclasses.replace(cfg, model=model, train=dataclasses.replace(
         cfg.train, batch_size=DDP_BATCH, num_train_epochs=1, **train))
 
@@ -3817,7 +4135,8 @@ def _grad_step(cfg, ds, log_dir, device):
 
 def phase_ddp_nccl(smi, tmp):
     """``parallel.init_distributed`` over NCCL at world size 1 in this
-    process, then the flagship at full width, bf16, batch 32, 3 steps
+    process, then the flagship's widths at ``DDP_LAYERS_PER_BLOCK``, bf16,
+    batch 32, 3 steps
     through ``Trainer`` under DDP, against the plain one-process trainer
     twice (the second run gives the card's own noise floor): DDP's loss gap
     at most 2x the floor + 1e-6, kernels #1 and #2 launched under DDP.
@@ -3872,7 +4191,8 @@ def phase_ddp_nccl(smi, tmp):
         "prompt_two_steps": sorted(prompt) == [1, 2],
     }
     emit({"phase": "ddp_nccl", "what": f"Trainer under DDP over NCCL, world "
-          f"size 1: ModelConfig() bf16 batch {DDP_BATCH}, {DDP_STEPS} steps, "
+          f"size 1: ModelConfig() widths at {DDP_LAYERS_PER_BLOCK} layer a "
+          f"block, bf16 batch {DDP_BATCH}, {DDP_STEPS} steps, "
           f"against the plain trainer twice; the prompt family under DDP, "
           f"batch 4, 2 steps", "checks": checks,
           "loss": {"ddp": ddp, "plain": plain, "plain_again": again,
@@ -3927,8 +4247,9 @@ def ddp_rank_main(out):
 
 def phase_ddp_two_ranks(smi, tmp):
     """Two processes on the one card over gloo (``ddp_rank_main``), the
-    flagship at full width, global batch 32 (16 a rank), the text
-    encoder's dropout off so that the ranks draw what one process draws:
+    flagship's widths at ``DDP_LAYERS_PER_BLOCK``, global batch 32 (16 a
+    rank), the text encoder's dropout off so that the ranks draw what one
+    process draws:
     one f32 step (TF32 off) whose all-reduced gradient and loss are held
     to this process's one-process step on the same 32 rows (relative
     1e-4 and 1e-5), and three bf16 steps replicated and with
@@ -4185,50 +4506,68 @@ def main():
              "--remat-times": remat_times}
     if any(a not in modes for a in sys.argv[1:]):
         raise SystemExit(f"chip_smoke: arguments are any of {list(modes)}")
+    t_script = time.perf_counter()
     smi = phase_card()
     if sys.argv[1:]:
         for a in sys.argv[1:]:
             modes[a](smi)
         return
+    walls = {}
+
+    def timed(phase):
+        """``phase``, its wall seconds kept in ``walls`` by name."""
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return phase(*args)
+            finally:
+                walls[phase.__name__[len("phase_"):]] = (
+                    time.perf_counter() - t0)
+        return run
+
     with full_f32():
-        fwd = phase_attention_fwd(smi)
-        lstm, lstm_t = phase_lstm(smi)
-        resnet = phase_resnet(smi)
-    synth = phase_slice(smi)
+        fwd = timed(phase_attention_fwd)(smi)
+        lstm, lstm_t = timed(phase_lstm)(smi)
+        resnet = timed(phase_resnet)(smi)
+    synth = timed(phase_slice)(smi)
     with tempfile.TemporaryDirectory() as tmp:
-        prompt, other, prompt_rvq_res = phase_prompt_slice(smi, tmp)
-        served, long_cli = phase_serve(smi, tmp)
-        prompt_served, serve_rvq_gap = phase_prompt_serve(smi, tmp)
+        prompt, other, prompt_rvq_res = timed(phase_prompt_slice)(smi, tmp)
+        served, long_cli = timed(phase_serve)(smi, tmp)
+        prompt_served, serve_rvq_gap = timed(phase_prompt_serve)(smi, tmp)
     with full_f32():
-        phase_small(smi)
-        phase_prompt_small(smi)
-        phase_encode_small(smi)
-        phase_train_small(smi)
-        phase_prompt_train_small(smi)
+        timed(phase_small)(smi)
+        timed(phase_prompt_small)(smi)
+        timed(phase_encode_small)(smi)
+        timed(phase_train_small)(smi)
+        timed(phase_prompt_train_small)(smi)
     with tempfile.TemporaryDirectory() as tmp:
-        encode, rvq, codes_tar = phase_encode_slice(smi, tmp)
-        train, batch, ckpt = phase_train_slice(smi, codes_tar, tmp)
-        prompt_train, prompt_ckpt, prompt_cfg = phase_prompt_train_slice(
-            smi, codes_tar, tmp, batch)
-        ckpt_synth = phase_ckpt_synth(smi, tmp, prompt_ckpt, prompt_cfg,
-                                      ckpt)
-        remat = phase_remat_train(smi, codes_tar, batch)
-        extras = phase_train_cli_extras(smi, codes_tar, tmp)
-        evaluated = phase_evaluate(smi, codes_tar, ckpt, prompt_ckpt,
-                                   prompt_cfg, batch)
-        exported = phase_export(smi, tmp, ckpt)
-    ddpm = phase_ddpm(smi)
+        encode, rvq, codes_tar = timed(phase_encode_slice)(smi, tmp)
+        train, batch, ckpt = timed(phase_train_slice)(smi, codes_tar, tmp)
+        prompt_train, prompt_ckpt, prompt_cfg = timed(
+            phase_prompt_train_slice)(smi, codes_tar, tmp, batch)
+        ckpt_synth = timed(phase_ckpt_synth)(smi, tmp, prompt_ckpt,
+                                             prompt_cfg, ckpt)
+        remat = timed(phase_remat_train)(smi, codes_tar, batch)
+        extras = timed(phase_train_cli_extras)(smi, codes_tar, tmp)
+        evaluated = timed(phase_evaluate)(smi, codes_tar, ckpt,
+                                          prompt_ckpt, prompt_cfg, batch)
+        exported = timed(phase_export)(smi, tmp, ckpt)
+    ddpm = timed(phase_ddpm)(smi)
+    codec_bf16 = timed(phase_codec_bf16)(smi)
     with tempfile.TemporaryDirectory() as tmp:
-        profiled = phase_profile(smi, tmp, batch)
-        ddp_nccl = phase_ddp_nccl(smi, tmp)
-        ddp_ranks = phase_ddp_two_ranks(smi, tmp)
-        phase_torchrun(smi, tmp)
+        variants = timed(phase_unet_variants)(smi, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        profiled = timed(phase_profile)(smi, tmp, batch)
+        ddp_nccl = timed(phase_ddp_nccl)(smi, tmp)
+        ddp_ranks = timed(phase_ddp_two_ranks)(smi, tmp)
+        timed(phase_torchrun)(smi, tmp)
     rvq["differ"]["prompt_latents"] = prompt_rvq_res["differ"]
     rvq["max_abs_err"] = max(rvq["max_abs_err"],
                              prompt_rvq_res["max_score_gap"], serve_rvq_gap)
     with full_f32():
-        bwd, fwd["train_shapes"] = phase_attention_bwd(smi, batch)
-        bwd["prompt_train_shapes"] = phase_prompt_attention_bwd(smi, batch)
+        bwd, fwd["train_shapes"] = timed(phase_attention_bwd)(smi, batch)
+        bwd["prompt_train_shapes"] = timed(phase_prompt_attention_bwd)(
+            smi, batch)
     bwd["max_abs_err"] = max(bwd["max_abs_err"],
                              bwd["prompt_train_shapes"].pop("max_abs_err"))
     paths = {k: {"synthesize": synth[k], "prompt_synthesize": prompt[k],
@@ -4240,7 +4579,8 @@ def main():
                  "train_cli_extras": extras[k], "evaluate": evaluated[k],
                  "export": exported[k], "ddpm": ddpm[k],
                  "profile": profiled[k], "ddp_nccl": ddp_nccl[k],
-                 "ddp_two_ranks": ddp_ranks[k]} for k in KERNELS}
+                 "ddp_two_ranks": ddp_ranks[k], "codec_bf16": codec_bf16[k],
+                 "unet_variants": variants[k]} for k in KERNELS}
     launches = {k: sum(p.values()) for k, p in paths.items()}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the paths never ran: {launches}")
@@ -4251,6 +4591,8 @@ def main():
         ("lstm_recurrence_t", "lstm_t", "lstm.py:170", lstm_t),
         ("rvq_encode", "rvq", "rvq.py:75", rvq),
         ("fused_resnet_block", "resnet", "resnet.py:136", resnet))
+    emit({"phase_walls_s": walls, "script_s": time.perf_counter() - t_script,
+          "card": smi})
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"prompt_tts_tpu_torch/csrc/{src}.cu",

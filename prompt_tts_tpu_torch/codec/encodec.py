@@ -86,26 +86,26 @@ class EncodecEncoder(_LayerStack):
     """SEANet encoder: wav ``[B, T, 1]`` -> latents ``[B, ceil(T/320), 128]``."""
 
     def __init__(self, config: EncodecConfig24k = EncodecConfig24k(),
-                 device=None):
+                 device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = config
+        kw = dict(device=device, dtype=dtype)
         layers = [CodecConv1d(cfg.audio_channels, cfg.num_filters,
-                              cfg.kernel_size, device=device)]
+                              cfg.kernel_size, **kw)]
         scaling = 1
         for ratio in reversed(cfg.upsampling_ratios):
             current = scaling * cfg.num_filters
             layers += [CodecResnetBlock(
                 current, dilation=cfg.dilation_growth_rate ** j,
                 kernel_size=cfg.residual_kernel_size, compress=cfg.compress,
-                device=device) for j in range(cfg.num_residual_layers)]
+                **kw) for j in range(cfg.num_residual_layers)]
             layers += [None, CodecConv1d(current, current * 2, ratio * 2,
-                                         stride=ratio, device=device)]
+                                         stride=ratio, **kw)]
             scaling *= 2
         width = scaling * cfg.num_filters
-        layers += [CodecLSTM(width, width, cfg.num_lstm_layers,
-                             device=device),
+        layers += [CodecLSTM(width, width, cfg.num_lstm_layers, **kw),
                    None, CodecConv1d(width, cfg.hidden_size,
-                                     cfg.last_kernel_size, device=device)]
+                                     cfg.last_kernel_size, **kw)]
         self._register(layers)
 
 
@@ -113,28 +113,28 @@ class EncodecDecoder(_LayerStack):
     """SEANet decoder: latents ``[B, F, 128]`` -> wav ``[B, F*320, 1]``."""
 
     def __init__(self, config: EncodecConfig24k = EncodecConfig24k(),
-                 device=None):
+                 device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = config
+        kw = dict(device=device, dtype=dtype)
         scaling = 2 ** len(cfg.upsampling_ratios)
         layers = [
             CodecConv1d(cfg.hidden_size, scaling * cfg.num_filters,
-                        cfg.kernel_size, device=device),
+                        cfg.kernel_size, **kw),
             CodecLSTM(scaling * cfg.num_filters, scaling * cfg.num_filters,
-                      cfg.num_lstm_layers, device=device),
+                      cfg.num_lstm_layers, **kw),
         ]
         for ratio in cfg.upsampling_ratios:
             current = scaling * cfg.num_filters
             layers += [None, CodecConvTranspose1d(current, current // 2,
-                                                  ratio * 2, ratio,
-                                                  device=device)]
+                                                  ratio * 2, ratio, **kw)]
             layers += [CodecResnetBlock(
                 current // 2, dilation=cfg.dilation_growth_rate ** j,
                 kernel_size=cfg.residual_kernel_size, compress=cfg.compress,
-                device=device) for j in range(cfg.num_residual_layers)]
+                **kw) for j in range(cfg.num_residual_layers)]
             scaling //= 2
         layers += [None, CodecConv1d(cfg.num_filters, cfg.audio_channels,
-                                     cfg.last_kernel_size, device=device)]
+                                     cfg.last_kernel_size, **kw)]
         self._register(layers)
 
 
@@ -145,17 +145,31 @@ class EncodecCodec(nn.Module):
     the JAX codec.  The encoder is registered after the decoder and the
     codebooks, so seeded random weights (``pipeline.random_init_``, which
     draws in ``modules()`` order) keep the decode side's values.
+    ``dtype`` is the layers' compute dtype over f32 parameters (JAX
+    ``EncodecCodec(dtype=...)``); :meth:`at_dtype` gives a codec in
+    another dtype over the same parameters.
     """
 
     def __init__(self, config: EncodecConfig24k = EncodecConfig24k(),
-                 device=None):
+                 device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
-        self.decoder = EncodecDecoder(config, device=device)
+        self.dtype = dtype
+        self.decoder = EncodecDecoder(config, device=device, dtype=dtype)
         self.codebooks = nn.Parameter(torch.zeros(
             config.num_quantizers, config.codebook_size, config.codebook_dim,
             device=device))
-        self.encoder = EncodecEncoder(config, device=device)
+        self.encoder = EncodecEncoder(config, device=device, dtype=dtype)
+
+    def at_dtype(self, dtype: torch.dtype) -> "EncodecCodec":
+        """This codec computing in ``dtype``: a second module over the same
+        parameter storage (not a copy), so weights loaded into either show
+        in both; ``self`` when the dtype is its own."""
+        if dtype == self.dtype:
+            return self
+        other = EncodecCodec(self.config, device="meta", dtype=dtype)
+        other.load_state_dict(self.state_dict(), strict=True, assign=True)
+        return other.train(self.training)
 
     def encode(self, wav: torch.Tensor, bandwidth_kbps: float = 6.0,
                lstm_schedule: Optional[str] = None) -> torch.Tensor:
@@ -170,7 +184,8 @@ class EncodecCodec(nn.Module):
 
     def decode(self, codes: torch.Tensor,
                lstm_schedule: Optional[str] = None) -> torch.Tensor:
-        """codes ``[B, n_q, F]`` -> wav ``[B, F*320]``."""
+        """codes ``[B, n_q, F]`` -> wav ``[B, F*320]`` in the codec's
+        dtype."""
         n_q = codes.shape[1]
         emb = rvq_decode(codes, self.codebooks[:n_q])
         return self.decoder(emb, lstm_schedule)[..., 0]

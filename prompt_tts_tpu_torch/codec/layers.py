@@ -5,6 +5,14 @@ channels-last ``[B, T, C]``; the convolutions run on a transposed view, so
 between layers the data stays channels-first in memory.  Padding amounts
 are computed from the input length, reproducing the causal reflect padding
 of the torch ``EncodecConv1d``.
+
+``dtype`` is the compute dtype, as flax's ``dtype=``: the parameters stay
+f32, and a bf16 layer casts its input and weights per call (the convs then
+run on bf16 activations and weights, cuDNN's bf16 convolutions on the
+card).  The LSTM's input projection takes bf16 operands with f32
+accumulation, plus the f32 bias, and its recurrence stays f32
+(JAX ``codec/layers.py:143-147``), so the LSTM kernels keep their f32
+contract.
 """
 
 import math
@@ -59,31 +67,38 @@ class CodecConv1d(nn.Module):
     """Causal conv with EnCodec padding (weight norm already folded)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, dilation: int = 1, device=None):
+                 stride: int = 1, dilation: int = 1, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Conv1d(in_channels, out_channels, kernel_size, stride,
                               dilation=dilation, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = self.conv
+        c, dt = self.conv, self.dtype
         left, right = causal_pad_amounts(x.shape[1], c.kernel_size[0],
                                          c.stride[0], c.dilation[0])
-        x = reflect_pad(x, left, right)
-        return c(x.transpose(1, 2)).transpose(1, 2)
+        x = reflect_pad(x.to(dt), left, right)
+        return c._conv_forward(x.transpose(1, 2), c.weight.to(dt),
+                               c.bias.to(dt)).transpose(1, 2)
 
 
 class CodecConvTranspose1d(nn.Module):
     """Transposed conv with causal right-trim (trim_right_ratio = 1)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int, device=None):
+                 stride: int, device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.ConvTranspose1d(in_channels, out_channels, kernel_size,
                                        stride, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x.transpose(1, 2))
-        trim = self.conv.kernel_size[0] - self.conv.stride[0]
+        c, dt = self.conv, self.dtype
+        y = F.conv_transpose1d(x.to(dt).transpose(1, 2), c.weight.to(dt),
+                               c.bias.to(dt), c.stride, c.padding,
+                               c.output_padding, c.groups, c.dilation)
+        trim = c.kernel_size[0] - c.stride[0]
         return y[..., : y.shape[-1] - trim].transpose(1, 2)
 
 
@@ -100,8 +115,9 @@ class CodecLSTM(nn.Module):
     """
 
     def __init__(self, in_channels: int, hidden: int, num_layers: int = 2,
-                 device=None):
+                 device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.hidden = hidden
         self.num_layers = num_layers
         for layer in range(num_layers):
@@ -123,6 +139,11 @@ class CodecLSTM(nn.Module):
             w_ih = getattr(self, f"l{layer}_w_ih")
             w_hh = getattr(self, f"l{layer}_w_hh")      # [4H, H]
             b = getattr(self, f"l{layer}_b")
+            if self.dtype != torch.float32:
+                # bf16 operands, f32 accumulation (JAX's einsum with
+                # preferred_element_type=f32): the rounded operands'
+                # products are exact in f32 (TF32 holds a bf16 too)
+                x, w_ih = (t.to(self.dtype).float() for t in (x, w_ih))
             x_proj = torch.einsum("btc,gc->btg", x, w_ih) + b    # [B, T, 4H]
             x_proj = x_proj.transpose(0, 1).contiguous()        # [T, B, 4H]
             if schedule == "step":
@@ -137,13 +158,15 @@ class CodecResnetBlock(nn.Module):
     """SEANet residual unit: ELU-conv(k,dil)-ELU-conv(1) + 1x1 shortcut."""
 
     def __init__(self, dim: int, dilation: int = 1, kernel_size: int = 3,
-                 compress: int = 2, device=None):
+                 compress: int = 2, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = dim // compress
         self.block_1 = CodecConv1d(dim, hidden, kernel_size,
-                                   dilation=dilation, device=device)
-        self.block_3 = CodecConv1d(hidden, dim, 1, device=device)
-        self.shortcut = CodecConv1d(dim, dim, 1, device=device)
+                                   dilation=dilation, device=device,
+                                   dtype=dtype)
+        self.block_3 = CodecConv1d(hidden, dim, 1, device=device, dtype=dtype)
+        self.shortcut = CodecConv1d(dim, dim, 1, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.block_3(F.elu(self.block_1(F.elu(x))))

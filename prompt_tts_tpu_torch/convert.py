@@ -8,12 +8,18 @@ changes:
   Dense kernel [in,out]          -> Linear weight [out,in]
   Conv kernel [k,in,out]         -> Conv1d weight [out,in,k]
   ConvTranspose kernel [k,out,in] -> ConvTranspose1d weight [in,out,k]
-                                    (the inverse of prompt_tts_tpu/codec/
-                                    convert.py:_convt_params)
+                                    (the codec's; the inverse of
+                                    prompt_tts_tpu/codec/convert.py:
+                                    _convt_params)
+  UNet upsample kernel [k,in,out] -> ConvTranspose1d weight [in,out,k]
+                                    (the conv-transpose variant, applied
+                                    by JAX with the kernel flipped: another
+                                    layout than the codec's)
   LayerNorm/GroupNorm scale      -> weight
   Embed embedding                -> weight
-  LSTM l{n}_w_ih / l{n}_w_hh / l{n}_b, the codebooks and the prompt
-  encoder's learned queries [K, dim]: as they are
+  LSTM l{n}_w_ih / l{n}_w_hh / l{n}_b, the codebooks, the prompt
+  encoder's learned queries [K, dim] and the UNet's frozen Fourier
+  ``time_proj/weight`` [E]: as they are
 
 Input trees are nested dicts of numpy arrays, as
 ``jax.tree.map(np.asarray, params)`` gives them, with or without the
@@ -50,13 +56,17 @@ def _convert(tree: dict) -> Dict[str, torch.Tensor]:
     state, unconsumed = {}, []
     for path, arr in _leaves(tree):
         *mods, leaf = path
+        parent = mods[-1] if mods else None
         if leaf == "kernel" and arr.ndim == 2:
             name, arr = "weight", arr.T
+        elif leaf == "kernel" and arr.ndim == 3 and parent == "upsample":
+            name, arr = "weight", arr.transpose(1, 2, 0)
         elif leaf == "kernel" and arr.ndim == 3:
             name, arr = "weight", arr.transpose(2, 1, 0)
         elif leaf in ("scale", "embedding"):
             name = "weight"
-        elif leaf == "bias" or _AS_IS.fullmatch(leaf):
+        elif (leaf == "bias" or _AS_IS.fullmatch(leaf)
+              or (leaf == "weight" and parent == "time_proj")):
             name = leaf
         else:
             unconsumed.append("/".join(path))
@@ -74,6 +84,20 @@ def model_state_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     return _convert(tree)
 
 
+def load_model_state_(model: nn.Module,
+                      state: Mapping[str, torch.Tensor]) -> None:
+    """``model.load_state_dict(state, strict=True)``, except that the UNet's
+    class embedding may be missing from ``state``: flax creates
+    ``class_embedding`` only when the model is called with class labels, so
+    a JAX tree initialised or trained without labels has none, while the
+    port builds it at init.  Its weights then stay the model's own."""
+    own = model.state_dict()
+    absent = [k for k in own if k not in state
+              and k.startswith("unet.class_embedding.")]
+    model.load_state_dict({**state, **{k: own[k] for k in absent}},
+                          strict=True)
+
+
 def model_state_to_jax(state: Mapping[str, torch.Tensor],
                        config) -> dict:
     """The port's ``TTSSingleSpeaker`` or ``TTSPromptSpeaker`` state dict
@@ -83,13 +107,20 @@ def model_state_to_jax(state: Mapping[str, torch.Tensor],
     its layout (a 2-D ``weight`` is a Dense kernel or an embedding), so the
     config's model is built on the meta device to look them up.  Names the
     model does not have, or lacks, raise."""
+    from prompt_tts_tpu_torch.models.embeddings import (
+        GaussianFourierProjection,
+    )
     from prompt_tts_tpu_torch.models.prompt_tts import TTSPromptSpeaker
     from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
     cls = TTSPromptSpeaker if config.prompt_conditioning else TTSSingleSpeaker
     owner = {}
-    for mname, m in cls(config, device="meta").named_modules():
+    model = cls(config, device="meta")
+    for mname, m in model.named_modules():
         for pname, _ in m.named_parameters(recurse=False):
             owner[f"{mname}.{pname}" if mname else pname] = m
+        for bname in m._buffers:
+            if bname not in m._non_persistent_buffers_set:
+                owner[f"{mname}.{bname}" if mname else bname] = m
     if set(owner) != set(state):
         raise ValueError(
             f"state dict does not match the config's model: missing "
@@ -105,6 +136,10 @@ def model_state_to_jax(state: Mapping[str, torch.Tensor],
                 leaf, arr = "kernel", arr.T
             elif isinstance(m, nn.Conv1d):
                 leaf, arr = "kernel", arr.transpose(2, 1, 0)
+            elif isinstance(m, nn.ConvTranspose1d):     # the UNet upsample
+                leaf, arr = "kernel", arr.transpose(2, 0, 1)
+            elif isinstance(m, GaussianFourierProjection):
+                pass
             elif isinstance(m, nn.Embedding):
                 leaf = "embedding"
             elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):

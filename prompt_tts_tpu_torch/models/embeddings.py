@@ -2,7 +2,8 @@
 
 Port of ``prompt_tts_tpu/models/embeddings.py`` (diffusers ``Timesteps`` /
 ``TimestepEmbedding`` semantics, and the reference's transposed sinusoidal
-positional table).  The fourier timestep variant is not ported.
+positional table), and the random-Fourier timestep features of the
+UNet's optional ``time_embedding_type="fourier"``.
 """
 
 import math
@@ -43,6 +44,37 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(t_emb)))
+
+
+class GaussianFourierProjection(nn.Module):
+    """Random-Fourier timestep features (diffusers-0.15
+    ``GaussianFourierProjection(embedding_size, set_W_to_weight=False,
+    log=False, flip_sin_to_cos=...)``): ``[B] -> [B, 2 * embedding_size]``,
+    ``[cos|sin]`` (or ``[sin|cos]``) of ``2 pi t w``.
+
+    ``weight ~ N(0, scale^2)`` is frozen, as torch registers it
+    (``requires_grad=False``): here a buffer, so it is outside the
+    optimizer, its weight decay, the gradient clip's norm and the EMA, and
+    it is saved with the model's state.  The phases reach thousands of
+    radians (t <= 999, |w| ~ 1), so they are computed in f32 whatever the
+    model computes in, in the JAX module's order (``t * w * 2 pi``), and
+    only the cos/sin leave in the caller's dtype.
+    """
+
+    def __init__(self, embedding_size: int, scale: float = 1.0,
+                 flip_sin_to_cos: bool = True, device=None):
+        super().__init__()
+        self.scale = scale
+        self.flip_sin_to_cos = flip_sin_to_cos
+        self.register_buffer("weight", torch.zeros(embedding_size,
+                                                   device=device))
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        x_proj = t.float()[:, None] * self.weight.float()[None, :] * (
+            2 * math.pi)
+        if self.flip_sin_to_cos:
+            return torch.cat([torch.cos(x_proj), torch.sin(x_proj)], dim=-1)
+        return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
 
 
 def transposed_positional_encoding(seq_len: int, dim: int) -> np.ndarray:

@@ -25,9 +25,12 @@ counterpart here and are synthesized for strict-load compatibility:
   any value is dead in the reference forward.
 
 Every leaf of the tree must be consumed by the mapping; leftovers (the
-prompt-conditioned family's parameters, which the reference has no
-modules for) raise with their paths rather than exporting a partial
-checkpoint.
+prompt-conditioned family's parameters, and the UNet's optional variants'
+``time_proj/weight``, ``class_embedding/*`` and conv-transpose
+``up_I/upsample/{kernel,bias}``, which the reference's saved models never
+contain) raise with their paths rather than exporting a partial
+checkpoint.  (The JAX module reaches the conv-transpose upsample first and
+raises a ``KeyError`` for its missing ``conv`` leaf.)
 
 Layout transforms (exact inverses of convert.py):
   Dense kernel [in,out] -> Linear weight [out,in]
@@ -197,7 +200,9 @@ def export_tree(params: Dict, cfg_model) -> Dict:
                 j += 1
             sampler = "downsample" if our == "down" else "upsample"
             ref_sampler = "downsamplers" if our == "down" else "upsamplers"
-            if w.has(path + (sampler,)):
+            # the conv-transpose upsample (no "conv" child) has no
+            # reference-checkpoint counterpart: its leaves stay leftovers
+            if w.has(path + (sampler, "conv")):
                 _conv1d(sd, f"{base}.{ref_sampler}.0.conv", w,
                         path + (sampler, "conv"))
             b += 1

@@ -212,7 +212,8 @@ def cast_compute_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     from prompt_tts_tpu_torch.models.unet1d import ResnetBlock1D
     from prompt_tts_tpu_torch.ops.resnet import pack_kernel_weights_
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Embedding)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d,
+                          nn.Embedding)):
             m.to(dtype)
     for m in module.modules():
         if isinstance(m, ResnetBlock1D):
@@ -226,7 +227,9 @@ def set_compute_dtype_(module: nn.Module,
     ``dtype`` (None: in their weights' dtype), casting weights and inputs
     per call: the parameters keep their dtype (f32 for training) and
     receive f32 gradients through the casts."""
+    from prompt_tts_tpu_torch.models.unet1d import ConvTransposeUpsample1D
     for m in module.modules():
-        if isinstance(m, (Dense, Conv1d, Embedding)):
+        if isinstance(m, (Dense, Conv1d, Embedding,
+                          ConvTransposeUpsample1D)):
             m.compute_dtype = dtype
     return module

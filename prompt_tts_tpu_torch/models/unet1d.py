@@ -10,10 +10,21 @@ Parity quirks kept from the JAX package (and its reference):
 * in UNet blocks ``unet_num_heads`` is the NUMBER of heads, head_dim =
   channels / heads.
 
-``class_emb`` (an already-embedded ``[B, 4 * chans[0]]`` vector, the prompt
-family's speaker embedding) is added to the time embedding.  The optional
-variants (fourier time embedding, the configured class embeddings,
-conv-transpose upsample, avg-pool downsample) are not ported and raise.
+``class_emb`` (an already-embedded ``[B, time_embed_dim]`` vector, the
+prompt family's speaker embedding) is added to the time embedding.
+
+The reference UNet's optional variants are ported too:
+* ``time_embedding_type="fourier"``: frozen random-Fourier features
+  (``time_proj``, a buffer) and a ``2 * chans[0]`` time embedding, where the
+  default "positional" path has sinusoidal features and ``4 * chans[0]``;
+* class embeddings of ``class_labels``, added to the time embedding: the
+  ``num_class_embeds`` table, ``"timestep"`` (the labels through the same
+  ``time_proj`` first), ``"identity"`` and ``"projection"``.  Flax creates
+  ``class_embedding`` only when it is called with labels; the port builds it
+  at init whenever the config asks for one;
+* ``downsample_avg_pool``: ``AvgPool1d(2, 2)`` in place of the strided conv;
+* ``upsample_conv_transpose``: ``ConvTranspose1d(C, C, 4, 2, 1)`` in place of
+  nearest resize + conv, exactly 2x (its params ``upsample/{weight,bias}``).
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -24,10 +35,10 @@ from torch import nn
 
 from prompt_tts_tpu_torch.config import ModelConfig
 from prompt_tts_tpu_torch.models.embeddings import (
-    TimestepEmbedding, timestep_embedding,
+    GaussianFourierProjection, TimestepEmbedding, timestep_embedding,
 )
 from prompt_tts_tpu_torch.models.layers import (
-    Conv1d, Dense, GroupNorm, TransformerBlock,
+    Conv1d, Dense, Embedding, GroupNorm, TransformerBlock,
 )
 from prompt_tts_tpu_torch.ops.resnet import resnet_block
 
@@ -85,6 +96,21 @@ class Downsample1D(nn.Module):
         return self.conv(x)
 
 
+class AvgPoolDownsample1D(nn.Module):
+    """``AvgPool1d(2, 2)`` downsample (the reference's ``use_conv=False``),
+    which cannot change the channel count."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.channels = channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        assert x.shape[-1] == self.channels, (
+            "AvgPool downsample cannot change channels (reference "
+            "resnet.py:76 asserts the same)")
+        return F.avg_pool1d(x.transpose(1, 2), 2, 2).transpose(1, 2)
+
+
 class Upsample1D(nn.Module):
     """Nearest resize to the skip's length + conv k3."""
 
@@ -94,6 +120,29 @@ class Upsample1D(nn.Module):
 
     def forward(self, x: torch.Tensor, target_len: int) -> torch.Tensor:
         return self.conv(_nearest_resize(x, target_len))
+
+
+class ConvTransposeUpsample1D(nn.ConvTranspose1d):
+    """``ConvTranspose1d(C, C, 4, 2, 1)`` upsample on ``[B, T, C]``: exactly
+    2x the length, no nearest resize.  Computes in ``compute_dtype`` (the
+    weight's dtype when None), input and params cast per call, as
+    ``layers.Conv1d``.  The weight is torch's ``[in, out, k]``; the JAX
+    kernel ``[k, in, out]`` is applied as a correlation of the 2-dilated
+    input with the kernel flipped over k, the same map."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def __init__(self, channels: int, device=None):
+        super().__init__(channels, channels, 4, 2, 1, device=device)
+
+    def forward(self, x: torch.Tensor, target_len: int) -> torch.Tensor:
+        assert target_len == 2 * x.shape[1], (
+            "conv-transpose upsample is exactly 2x (reference resnet.py:38 "
+            "returns self.conv(x) unconditionally)")
+        dt = self.compute_dtype or self.weight.dtype
+        y = F.conv_transpose1d(x.to(dt).transpose(1, 2), self.weight.to(dt),
+                               self.bias.to(dt), stride=2, padding=1)
+        return y.transpose(1, 2)
 
 
 class SpatialTransformer1D(nn.Module):
@@ -138,9 +187,14 @@ class _Block(nn.Module):
                     out_channels, cfg.unet_num_heads,
                     cfg.cross_attention_dim, g, cfg.dropout, device=device))
         if resample == "down":
-            self.downsample = Downsample1D(out_channels, device=device)
+            self.downsample = (
+                AvgPoolDownsample1D(out_channels) if cfg.downsample_avg_pool
+                else Downsample1D(out_channels, device=device))
         elif resample == "up":
-            self.upsample = Upsample1D(out_channels, device=device)
+            self.upsample = (
+                ConvTransposeUpsample1D(out_channels, device=device)
+                if cfg.upsample_conv_transpose
+                else Upsample1D(out_channels, device=device))
 
     def _layer(self, i, x, temb, context, cross_kv):
         x = getattr(self, f"resnet_{i}")(x, temb)
@@ -192,17 +246,6 @@ class MidBlock1DCrossAttn(nn.Module):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    unported = {
-        "time_embedding_type='fourier'": (cfg.time_embedding_type
-                                          != "positional"),
-        "class embeddings": (cfg.class_embed_type is not None
-                             or bool(cfg.num_class_embeds)),
-        "upsample_conv_transpose": cfg.upsample_conv_transpose,
-        "downsample_avg_pool": cfg.downsample_avg_pool,
-    }
-    for name, used in unported.items():
-        if used:
-            raise NotImplementedError(f"UNet option {name} is not ported")
     for bt in cfg.down_block_types:
         if bt not in ("CrossAttnDownBlock1D", "DownBlock1D"):
             raise ValueError(f"unknown down block {bt}")
@@ -226,9 +269,31 @@ class UNet1DCondition(nn.Module):
         self.config = cfg = config
         chans = cfg.block_out_channels
         n = len(chans)
-        temb_dim = chans[0] * 4
-        self.time_embedding = TimestepEmbedding(chans[0], temb_dim,
+        # "positional": sinusoidal features of width chans[0], embedded to
+        # 4 * chans[0]; "fourier": features of width 2 * chans[0], embedded
+        # to the same 2 * chans[0] (JAX unet1d.py:396-411)
+        self.time_proj = None
+        if cfg.time_embedding_type == "fourier":
+            self.time_proj = GaussianFourierProjection(
+                chans[0], flip_sin_to_cos=cfg.flip_sin_to_cos, device=device)
+            feat_dim = temb_dim = chans[0] * 2
+        else:
+            feat_dim, temb_dim = chans[0], chans[0] * 4
+        self.time_embedding = TimestepEmbedding(feat_dim, temb_dim,
                                                 device=device)
+        # class labels' embedding (JAX unet1d.py:414-445); "identity" and no
+        # class embedding have no parameters
+        self.class_embedding = None
+        if cfg.class_embed_type is None and cfg.num_class_embeds:
+            self.class_embedding = Embedding(cfg.num_class_embeds, temb_dim,
+                                             device=device)
+        elif cfg.class_embed_type == "timestep":
+            self.class_embedding = TimestepEmbedding(feat_dim, temb_dim,
+                                                     device=device)
+        elif cfg.class_embed_type == "projection":
+            self.class_embedding = TimestepEmbedding(
+                cfg.projection_class_embeddings_input_dim, temb_dim,
+                device=device)
         self.conv_in = Conv1d(cfg.in_channels, chans[0], 3, device=device)
 
         skip_ch = [chans[0]]
@@ -260,18 +325,49 @@ class UNet1DCondition(nn.Module):
                                        cfg.norm_eps, device=device)
         self.conv_out = Conv1d(chans[0], cfg.out_channels, 3, device=device)
 
+    def _time_features(self, t: torch.Tensor) -> torch.Tensor:
+        """f32 features of timesteps (or "timestep" class labels) ``[B]``."""
+        if self.time_proj is not None:
+            return self.time_proj(t)
+        cfg = self.config
+        return timestep_embedding(
+            t, cfg.block_out_channels[0],
+            flip_sin_to_cos=cfg.flip_sin_to_cos,
+            downscale_freq_shift=cfg.freq_shift)
+
+    def _class_embedding(self, labels: torch.Tensor,
+                         temb: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        if cfg.class_embed_type is None and cfg.num_class_embeds:
+            return self.class_embedding(labels)
+        if cfg.class_embed_type == "timestep":
+            return self.class_embedding(self._time_features(labels))
+        if cfg.class_embed_type == "identity":
+            return labels.to(temb.dtype)
+        if cfg.class_embed_type == "projection":
+            return self.class_embedding(labels)
+        raise ValueError("class_labels given but no class embedding "
+                         "configured (set class_embed_type or "
+                         "num_class_embeds)")
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 context: Optional[torch.Tensor],
                 cross_kv: Optional[CrossKV] = None,
-                class_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+                class_emb: Optional[torch.Tensor] = None,
+                class_labels: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """``class_labels``: ``[B]`` ints (the table, "timestep") or
+        ``[B, dim]`` vectors ("identity": dim = the time embedding's width;
+        "projection": ``projection_class_embeddings_input_dim``), through
+        the configured class embedding; ``class_emb``: an already-embedded
+        vector.  Both are added to the time embedding."""
         cfg = self.config
         ckv = cross_kv if cross_kv is not None else {}
         n = len(cfg.block_out_channels)
-        t_feat = timestep_embedding(
-            timesteps, cfg.block_out_channels[0],
-            flip_sin_to_cos=cfg.flip_sin_to_cos,
-            downscale_freq_shift=cfg.freq_shift)
-        temb = self.time_embedding(t_feat)
+        temb = self.time_embedding(self._time_features(timesteps))
+        if class_labels is not None:
+            temb = temb + self._class_embedding(class_labels, temb).to(
+                temb.dtype)
         if class_emb is not None:
             temb = temb + class_emb.to(temb.dtype)
 

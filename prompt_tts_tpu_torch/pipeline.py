@@ -14,6 +14,7 @@ inverts with round + clip before the codec decode.
 """
 
 import contextlib
+import copy
 import math
 import re
 import threading
@@ -30,6 +31,7 @@ from prompt_tts_tpu_torch.codec.layers import CodecLSTM
 from prompt_tts_tpu_torch.diffusion.ddim import ddim_sample
 from prompt_tts_tpu_torch.diffusion.dpm import dpm_solver_sample
 from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
+from prompt_tts_tpu_torch.models.embeddings import GaussianFourierProjection
 from prompt_tts_tpu_torch.models.layers import cast_compute_
 from prompt_tts_tpu_torch.models.prompt_encoder import PromptEncoder
 from prompt_tts_tpu_torch.models.prompt_tts import TTSPromptSpeaker
@@ -104,9 +106,10 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter of ``module`` from the CPU ``generator``, in
     the manner of the JAX package's flax initializers: lecun-normal
     matmul/conv weights, zero biases, unit norm scales, xavier-uniform LSTM
-    weights, unit-normal codebooks, N(0, 0.02) prompt queries.  The repo holds no checkpoint, so the
-    port runs on weights like these; drawn on the CPU, one seed gives the
-    same weights on every device."""
+    weights, unit-normal codebooks, N(0, 0.02) prompt queries, the Fourier
+    time projection's N(0, scale^2) buffer.  The repo holds no checkpoint,
+    so the port runs on weights like these; drawn on the CPU, one seed gives
+    the same weights on every device."""
     def normal_(p, std):
         p.copy_(torch.randn(p.shape, generator=generator) * std)
 
@@ -131,6 +134,8 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                     bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
                     p.copy_((torch.rand(p.shape, generator=generator) * 2
                              - 1) * bound)
+        elif isinstance(m, GaussianFourierProjection):
+            normal_(m.weight, m.scale)
         elif isinstance(m, EncodecCodec):
             normal_(m.codebooks, 1.0)
         elif isinstance(m, PromptEncoder):
@@ -142,7 +147,8 @@ class CodecRunner:
     """The f32 EnCodec codec on one device: encode and decode, with TF32
     off.  ``lstm_schedule`` picks the LSTM kernel's schedule ("step" or
     "persistent"; None: the measured default, ``codec.layers.
-    DEFAULT_LSTM_SCHEDULE``)."""
+    DEFAULT_LSTM_SCHEDULE``).  :meth:`at_dtype` gives a runner whose decode
+    computes in another dtype over the same parameters."""
 
     def __init__(self, device, codec_state: Optional[dict] = None):
         self.device = torch.device(device)
@@ -154,13 +160,24 @@ class CodecRunner:
                          torch.Generator().manual_seed(CODEC_INIT_SEED))
         self.codec.eval()
 
+    def at_dtype(self, dtype: torch.dtype) -> "CodecRunner":
+        """A runner over this one's parameters (shared, not copied) whose
+        codec computes in ``dtype`` (JAX ``Synthesizer._codec_fast``);
+        ``self`` for f32."""
+        if dtype == self.codec.dtype:
+            return self
+        other = copy.copy(self)
+        other.codec = self.codec.at_dtype(dtype)
+        return other
+
     @torch.no_grad()
     def decode(self, codes, lstm_schedule: Optional[str] = None
                ) -> torch.Tensor:
         """int codes ``[B, n_q, T]`` -> wav ``[B, T*320]`` f32 @ 24 kHz."""
         codes = torch.as_tensor(codes, device=self.device)
         with full_f32():
-            return self.codec.decode(codes, lstm_schedule=lstm_schedule)
+            return self.codec.decode(codes,
+                                     lstm_schedule=lstm_schedule).float()
 
     @torch.no_grad()
     def encode(self, wav, lstm_schedule: Optional[str] = None
@@ -176,7 +193,10 @@ class Synthesizer:
     """Owns the model and codec and runs text (+ a voice prompt) -> wav.
 
     The denoiser computes in ``dtype`` (bf16 by default) over params drawn
-    or loaded in f32; the codec decodes in f32.  ``model_state`` /
+    or loaded in f32; the codec decodes in ``codec_dtype`` (f32 by default;
+    bf16 is the optional fast decode: a second codec over the same f32
+    parameters, for every decode of a synthesis, streamed or long-form;
+    the prompt's encode and :meth:`decode_codes` stay f32).  ``model_state`` /
     ``codec_state`` are port state dicts (see ``convert.py``); without them
     the weights are random, drawn from CPU ``torch.Generator``s with fixed
     seeds, so every device gets the same weights.  ``sampler`` is "ddim"
@@ -195,7 +215,8 @@ class Synthesizer:
                  num_inference_steps: int = 50,
                  model_state: Optional[dict] = None,
                  codec_state: Optional[dict] = None,
-                 sampler: str = "ddim", guidance_scale: float = 1.0):
+                 sampler: str = "ddim", guidance_scale: float = 1.0,
+                 codec_dtype: torch.dtype = torch.float32):
         if sampler not in ("ddim", "dpm"):
             raise ValueError(f"unknown sampler {sampler!r}")
         self.config = config or Config()
@@ -215,6 +236,7 @@ class Synthesizer:
                          torch.Generator().manual_seed(MODEL_INIT_SEED))
         cast_compute_(self.model.eval(), dtype)
         self.codec_runner = CodecRunner(self.device, codec_state)
+        self.codec_fast = self.codec_runner.at_dtype(codec_dtype)
         self.schedule = linear_schedule(
             self.config.train.num_train_timesteps, device=self.device)
         self.tokenizer = Tokenizer(max_len=mcfg.cmu_seq_len)
@@ -334,7 +356,7 @@ class Synthesizer:
         event)`` on the device, the event (None on the CPU) recorded after
         the last kernel."""
         codes = self._codes(texts, seed, x_T, prompt_wav, prompt_codes)
-        wav = self.codec_runner.decode(codes)
+        wav = self.codec_fast.decode(codes)
         if pcm16:
             wav = wav_to_pcm16(wav)
         event = None
@@ -403,7 +425,7 @@ class Synthesizer:
         prev = 0
         for end in bounds:
             with stream_scope(stream):
-                wav = self.codec_runner.decode(
+                wav = self.codec_fast.decode(
                     codes[:, :, :end].contiguous())[:, prev * 320:end * 320]
                 if pcm16:
                     wav = wav_to_pcm16(wav)

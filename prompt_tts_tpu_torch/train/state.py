@@ -2,7 +2,7 @@
 
 Port of ``prompt_tts_tpu/train/state.py`` (reference train.py:41-47,
 116-117): global-norm clip 1.0, then AdamW (betas 0.95/0.999, eps 1e-8,
-weight decay 1e-6, no decay on ``time_proj.weight``) at the schedule's
+weight decay 1e-6) at the schedule's
 learning rate for the update count.  Gradient accumulation follows
 ``optax.MultiSteps``: a running (Welford) mean of the micro-step gradients,
 one clip+AdamW update every ``gradient_accumulation_steps`` micro-steps,
@@ -15,7 +15,10 @@ the clip, ``grad_norm`` and the accumulated mean are the global ones.
 
 The optimizer is a stock ``torch.optim.AdamW`` (fused on the card), the
 same update as optax's ``adamw``: ``p -= lr * (m_hat / (sqrt(v_hat) + eps)
-+ wd * p)``.  Parameters, gradients, moments and the EMA are f32; a bf16
++ wd * p)``.  The frozen Fourier time projection (``unet.time_proj.
+weight``) is a buffer, so it is outside the optimizer, its weight decay,
+the clip's norm and the EMA, which JAX gets from ``decay_mask`` and
+``stop_gradient`` (``state.py:31-47``).  Parameters, gradients, moments and the EMA are f32; a bf16
 model casts its weights per call (``models.layers.set_compute_dtype_``).
 """
 
@@ -26,12 +29,6 @@ from torch import nn
 
 from prompt_tts_tpu_torch.config import TrainConfig
 from prompt_tts_tpu_torch.train.lr import get_schedule
-
-
-def decays(name: str) -> bool:
-    """Whether AdamW decays the parameter ``name`` (``state.py:31-46``: all
-    but the frozen fourier projection ``time_proj.weight``)."""
-    return not name.endswith("time_proj.weight")
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -58,17 +55,11 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
 
 
 def make_optimizer(model: nn.Module, cfg: TrainConfig) -> torch.optim.AdamW:
-    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-    groups = [
-        {"params": [p for n, p in named if decays(n)],
-         "weight_decay": cfg.weight_decay},
-        {"params": [p for n, p in named if not decays(n)],
-         "weight_decay": 0.0},
-    ]
-    groups = [g for g in groups if g["params"]]
-    on_card = all(p.device.type == "cuda" for _, p in named)
+    params = [p for p in model.parameters() if p.requires_grad]
+    on_card = all(p.device.type == "cuda" for p in params)
     return torch.optim.AdamW(
-        groups, lr=cfg.learning_rate, betas=(cfg.adam_b1, cfg.adam_b2),
+        [{"params": params, "weight_decay": cfg.weight_decay}],
+        lr=cfg.learning_rate, betas=(cfg.adam_b1, cfg.adam_b2),
         eps=cfg.adam_eps, fused=on_card or None,
         foreach=None if on_card else True)
 

@@ -881,3 +881,126 @@ def test_encode_on_card_matches_cpu(dev):
     torch.testing.assert_close(lat["cuda"], lat["cpu"], atol=ENC_TOL * scale,
                                rtol=0)
     assert (codes["cuda"] != codes["cpu"]).float().mean() <= RVQ_MAX_DIFFER
+
+
+# The UNet's optional variants at the card's small widths: the Fourier time
+# embedding, the avg-pool downsample, the conv-transpose upsample (48 ->
+# 24 -> 12 -> 6 frames and exactly back) and the "timestep" class
+# embedding, which runs the labels through the Fourier projection too.
+VARIANT_CFG = dataclasses.replace(
+    CARD_CFG, time_embedding_type="fourier", downsample_avg_pool=True,
+    upsample_conv_transpose=True, class_embed_type="timestep")
+# a whole bf16 UNet forward on the kernels against their plain versions in
+# relative Frobenius norm: the resnet kernel's bf16 tolerance for one block
+# (it rounds h once where the module rounds it twice) over the forward
+UNET_FRO_BF16 = RESNET_TOL_BF16
+# the bf16 decode against the f32 decode of the same codes, relative
+# Frobenius: bf16 activations and weights through 15 conv layers (1.1e-2
+# on the CPU)
+CODEC_BF16_FRO = 3e-2
+
+
+def _plain_unet(monkeypatch):
+    """The UNet's attention and resnet blocks on their plain versions
+    (flash_attention_plain, what the bf16 kernel computes; the blocks'
+    module arithmetic) until the test ends."""
+    from prompt_tts_tpu_torch.models import unet1d
+    from prompt_tts_tpu_torch.ops.cuda import attention as cuda_attention
+
+    def resnet(block, x, temb):
+        return resnet_block_plain(block, x, block.time_emb_proj(F.silu(temb)))
+    monkeypatch.setattr(cuda_attention, "flash_attention",
+                        lambda q, k, v, bias=None: flash_attention_plain(
+                            q, k, v, bias))
+    monkeypatch.setattr(unet1d, "resnet_block", resnet)
+
+
+def _variant_inputs(dev, B=2):
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(B, VARIANT_CFG.sample_size, 8, generator=g)
+    ctx = torch.randn(B, VARIANT_CFG.cmu_seq_len,
+                      VARIANT_CFG.cross_attention_dim, generator=g)
+    t = torch.tensor([7, 900])
+    labels = torch.tensor([3, 500])
+    return x, t, ctx, labels
+
+
+def test_variant_unet_on_card_matches_cpu(dev):
+    """f32 (TF32 off), the same weights and inputs: the card's kernels
+    against the CPU's plain versions to the model contract."""
+    from prompt_tts_tpu_torch.models.unet1d import UNet1DCondition
+    cpu = UNet1DCondition(VARIANT_CFG)
+    random_init_(cpu, torch.Generator().manual_seed(0))
+    card = UNet1DCondition(VARIANT_CFG, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    x, t, ctx, labels = _variant_inputs(dev)
+    flash_attention.launches = fused_resnet_block.launches = 0
+    with torch.no_grad(), full_f32():
+        want = cpu.eval()(x, t, ctx, class_labels=labels)
+        got = card.eval()(x.to(dev), t.to(dev), ctx.to(dev),
+                          class_labels=labels.to(dev)).cpu()
+    n_res = sum(isinstance(m, ResnetBlock1D) for m in card.modules())
+    assert flash_attention.launches == 2 * len(list(
+        cross_attn_sites(VARIANT_CFG)))
+    assert fused_resnet_block.launches == n_res
+    torch.testing.assert_close(got, want, atol=LATENT_TOL, rtol=0)
+
+
+def test_variant_unet_bf16_kernels_match_plain(dev, monkeypatch):
+    from prompt_tts_tpu_torch.models.unet1d import UNet1DCondition
+    unet = UNet1DCondition(VARIANT_CFG, device=dev)
+    random_init_(unet, torch.Generator().manual_seed(0))
+    cast_compute_(unet.eval(), torch.bfloat16)
+    assert unet.time_proj.weight.dtype == torch.float32
+    x, t, ctx, labels = (a.to(dev) for a in _variant_inputs(dev))
+    with torch.no_grad():
+        got = unet(x, t, ctx, class_labels=labels)
+        _plain_unet(monkeypatch)
+        want = unet(x, t, ctx, class_labels=labels)
+    err = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert err <= UNET_FRO_BF16, err
+
+
+def test_fourier_buffer_frozen_through_card_steps(dev, tmp_path):
+    """bf16 ``Trainer`` steps on the card with weight decay: the Fourier
+    buffer is bit-unchanged while the parameters move."""
+    from prompt_tts_tpu_torch.data.dataset import SyntheticDataset
+    from prompt_tts_tpu_torch.train.loop import Trainer
+    cfg = Config(model=VARIANT_CFG, train=TrainConfig(
+        batch_size=2, learning_rate=1e-3, weight_decay=1e-2,
+        lr_warmup_steps=0, lr_scheduler="constant"))
+    ds = SyntheticDataset(4, frames=VARIANT_CFG.sample_size,
+                          max_seq_length=VARIANT_CFG.cmu_seq_len)
+    trainer = Trainer(cfg, ds, str(tmp_path), device=dev,
+                      dtype=torch.bfloat16)
+    before = trainer.model.unet.time_proj.weight.clone()
+    lin = trainer.model.unet.time_embedding.linear_1.weight.detach().clone()
+    batches = ds.batches(2)
+    attention_bwd.launches = 0
+    for _ in range(2):
+        assert np.isfinite(float(trainer.train_step(next(batches))["loss"]))
+    assert attention_bwd.launches > 0
+    assert torch.equal(trainer.model.unet.time_proj.weight, before)
+    assert not torch.equal(trainer.model.unet.time_embedding.linear_1.weight,
+                           lin)
+
+
+def test_bf16_decode_on_card(dev):
+    """``CodecRunner.at_dtype(torch.bfloat16)`` on the card: f32 out, the
+    LSTM kernel launched (its f32 contract kept), near the f32 decode of the
+    same codes and the CPU's bf16 decode."""
+    codes = torch.randint(0, 1024, (2, 8, 40),
+                          generator=torch.Generator().manual_seed(1))
+    cpu = CodecRunner("cpu")
+    card = CodecRunner(dev)
+    fast = card.at_dtype(torch.bfloat16)
+    lstm_recurrence.launches = lstm_recurrence_t.launches = 0
+    wav16 = fast.decode(codes.to(dev)).cpu()
+    assert lstm_recurrence.launches + lstm_recurrence_t.launches == 2
+    wav32 = card.decode(codes.to(dev)).cpu()
+    cpu16 = cpu.at_dtype(torch.bfloat16).decode(codes)
+    assert wav16.dtype == torch.float32 and torch.isfinite(wav16).all()
+    for ref in (wav32, cpu16):
+        err = ((wav16 - ref).norm() / ref.norm()).item()
+        assert err <= CODEC_BF16_FRO, err

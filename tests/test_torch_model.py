@@ -135,7 +135,16 @@ def test_converter_consumes_every_leaf(pair):
 
 
 def test_optional_unet_variants_raise():
+    """The optional variants are ported (``tests/test_torch_unet_variants.
+    py`` holds them to JAX); what still raises is a block type the UNet
+    does not have, and class labels without a class embedding."""
     import dataclasses
-    with pytest.raises(NotImplementedError, match="fourier"):
+    TTSSingleSpeaker(dataclasses.replace(CFG, time_embedding_type="fourier"))
+    with pytest.raises(ValueError, match="unknown down block"):
         TTSSingleSpeaker(dataclasses.replace(
-            CFG, time_embedding_type="fourier"))
+            CFG, down_block_types=("AttnDownBlock1D",) * 4))
+    unet = TTSSingleSpeaker(CFG).unet
+    x = torch.zeros(1, CFG.sample_size, CFG.in_channels)
+    ctx = torch.zeros(1, CFG.cmu_seq_len, CFG.cross_attention_dim)
+    with pytest.raises(ValueError, match="no class embedding configured"):
+        unet(x, torch.zeros(1), ctx, class_labels=torch.zeros(1))
