@@ -408,6 +408,17 @@ def bound(flops, nbytes, dtype):
             "flop": flops, "bytes": nbytes}
 
 
+def attn_bound(flop, nbytes, dtype):
+    """The least time of an attention call in ``dtype``: bf16 on the tensor
+    cores; f32 as the kernels run it, 3 x TF32 (three TF32 products at the
+    card's dense TF32 peak), beside the f32 CUDA cores' floor."""
+    if dtype == "bfloat16":
+        return bound(flop, nbytes, dtype)
+    return {**bound(3 * flop, nbytes, "tfloat32"), "flop": flop,
+            "bound_f32_cuda_cores_ms": bound(flop, nbytes,
+                                             "float32")["bound_ms"]}
+
+
 def exp_floor(exps):
     """The least time (ms) the card's special-function units take for
     ``exps`` exponentials."""
@@ -760,11 +771,12 @@ def _attention_serve_cases(smi):
 
 def phase_attention_bwd(smi, train_batch):
     """The backward kernel against its plain version at B=4 (f32 and bf16
-    inputs), then timed at the training batch in bf16 over one train
-    step's 36 calls: kernel, plain, and the library's backward (SDPA
-    through autograd); and the forward kernel with the lse at the same
-    calls: kernel, plain and SDPA forward.  Returns the backward's and the
-    forward's sums."""
+    inputs), then timed at the training batch over one train step's 36
+    calls, in bf16 (``cli.train --bf16``) and in f32 (its default): kernel,
+    plain, and the library's backward (SDPA through autograd); and the
+    forward kernel with the lse at the same calls: kernel, plain and SDPA
+    forward.  Returns the backward's and the forward's sums in bf16, each
+    with the f32 sums under ``f32_train_shapes``."""
     import torch
     from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
     from prompt_tts_tpu_torch.ops.cuda.attention_bwd import attention_bwd
@@ -791,54 +803,68 @@ def phase_attention_bwd(smi, train_batch):
             err_all = max(err_all, *errs.values())
             del q, k, v, do, o, lse, got
 
-    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-            "fwd_lse_ms": 0.0, "flop": 0, "bytes": 0, "exps": 0}
-    fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0,
-           "bytes": 0, "exps": 0}
     B = train_batch
-    for label, Tq, Tk, H, D, masked, n in attn_cases():
-        t = _bwd_case_times(g, B, Tq, Tk, H, D, masked)
-        emit({"phase": "kernel_time", "kernel": "attention_bwd",
-              "case": label, "dtype": "bfloat16", "B": B, "calls": n,
-              **t["bwd"], "card": smi})
-        if not t["bwd"]["bit_identical"]:
-            raise AssertionError(f"attention_bwd {label}: two runs differ")
-        emit({"phase": "kernel_time", "kernel": "attention_fwd_lse",
-              "case": label, "dtype": "bfloat16", "B": B, "calls": n,
-              **t["fwd"], "card": smi})
-        for acc, key in ((step, "bwd"), (fwd, "fwd")):
-            for k in acc:
-                acc[k] += n * t[key][k]
-    b = bound(step.pop("flop"), step.pop("bytes"), "bfloat16")
-    fb = bound(fwd.pop("flop"), fwd.pop("bytes"), "bfloat16")
-    exp_ms, fwd_exp_ms = exp_floor(step.pop("exps")), exp_floor(fwd.pop("exps"))
-    unit = f"one train step's {ATTN_CALLS} calls, bf16, B={B}"
-    return ({"max_abs_err": err_all, **step, "bound_ms": b["bound_ms"],
-             "bound_by": b["bound_by"], "exp_ms": exp_ms, "unit": unit},
-            {**fwd, "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
-             "exp_ms": fwd_exp_ms, "unit": unit + ", with the lse"})
+    sums = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "fwd_lse_ms": 0.0, "flop": 0, "bytes": 0, "exps": 0}
+        fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0,
+               "bytes": 0, "exps": 0}
+        for label, Tq, Tk, H, D, masked, n in attn_cases():
+            t = _bwd_case_times(g, B, Tq, Tk, H, D, masked, dtype)
+            emit({"phase": "kernel_time", "kernel": "attention_bwd",
+                  "case": label, "dtype": dname, "B": B, "calls": n,
+                  **t["bwd"], "card": smi})
+            if not t["bwd"]["bit_identical"]:
+                raise AssertionError(f"attention_bwd {label} {dname}: two "
+                                     f"runs differ")
+            emit({"phase": "kernel_time", "kernel": "attention_fwd_lse",
+                  "case": label, "dtype": dname, "B": B, "calls": n,
+                  **t["fwd"], "card": smi})
+            for acc, key in ((step, "bwd"), (fwd, "fwd")):
+                for k in acc:
+                    acc[k] += n * t[key][k]
+        exps, fwd_exps = step.pop("exps"), fwd.pop("exps")
+        b = attn_bound(step.pop("flop"), step.pop("bytes"), dname)
+        fb = attn_bound(fwd.pop("flop"), fwd.pop("bytes"), dname)
+        for d in (b, fb):
+            del d["flop"], d["bytes"]
+        unit = f"one train step's {ATTN_CALLS} calls, {dname}, B={B}"
+        sums[dname] = (
+            {**step, **b, "exp_ms": exp_floor(exps), "unit": unit},
+            {**fwd, **fb, "exp_ms": exp_floor(fwd_exps),
+             "unit": unit + ", with the lse"})
+    step, fwd = sums["bfloat16"]
+    step["f32_train_shapes"], fwd["f32_train_shapes"] = sums["float32"]
+    return {"max_abs_err": err_all, **step}, fwd
 
 
-def _bwd_case_times(g, B, Tq, Tk, H, D, masked):
-    """One bf16 attention call at [B, Tq/Tk, H, D], timed by CUDA events:
-    the backward kernel, its plain version and the library's backward (SDPA
-    through autograd), whether two backward runs give the same bits; the
-    forward kernel with the lse, its plain version and SDPA's forward; each
-    with its flop, bytes and exps.  ``fwd_lse_ms`` rides with the
-    backward."""
+def _bwd_case_times(g, B, Tq, Tk, H, D, masked, dtype=None):
+    """One attention call at [B, Tq/Tk, H, D] in ``dtype`` (bf16 if None),
+    timed by CUDA events: the backward kernel, its plain version and the
+    library's backward (SDPA through autograd), whether two backward runs
+    give the same bits; the forward kernel with the lse, its plain version
+    (bf16: ``flash_attention_plain``, f32: ``attention_plain``) and SDPA's
+    forward; each with its flop, bytes and exps and its bounds
+    (``attn_bound``).  ``fwd_lse_ms`` rides with the backward."""
     import torch
     from prompt_tts_tpu_torch.ops.attention import (
-        attention_bwd_plain, flash_attention_plain,
+        attention_bwd_plain, attention_plain, flash_attention_plain,
     )
     from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
     from prompt_tts_tpu_torch.ops.cuda import opcount
     from prompt_tts_tpu_torch.ops.cuda.attention_bwd import attention_bwd
-    q, k, v, bias = attn_inputs(g, B, Tq, Tk, H, D, masked, torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    dname = str(dtype).split(".")[-1]
+    fwd_plain = (flash_attention_plain if dtype == torch.bfloat16
+                 else attention_plain)
+    q, k, v, bias = attn_inputs(g, B, Tq, Tk, H, D, masked, dtype)
     do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
     o, lse = flash_attention(q, k, v, bias, return_lse=True)
     fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, bias, return_lse=True),
                      10)
-    fwd_plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, bias), 3)
+    fwd_plain_ms = cuda_ms(lambda: fwd_plain(q, k, v, bias), 3)
     fwd_lib_ms = cuda_ms(lambda: sdpa(q, k, v, bias), 10)
     ms = cuda_ms(lambda: attention_bwd(q, k, v, o, do, bias, lse,
                                        need_dbias=masked), 10)
@@ -870,12 +896,12 @@ def _bwd_case_times(g, B, Tq, Tk, H, D, masked):
     del q, k, v, do, o, lse, leaves, out
     torch.cuda.empty_cache()
     return {"bwd": {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "fwd_lse_ms": fwd_ms, **bound(flop, nbytes, "bfloat16"),
+                    "fwd_lse_ms": fwd_ms, **attn_bound(flop, nbytes, dname),
                     "exps": exps, "exp_ms": exp_floor(exps),
                     "bit_identical": same},
             "fwd": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                     "library_ms": fwd_lib_ms,
-                    **bound(fwd_flop, fwd_bytes, "bfloat16"),
+                    **attn_bound(fwd_flop, fwd_bytes, dname),
                     "exps": fwd_exps, "exp_ms": exp_floor(fwd_exps)}}
 
 
@@ -3197,7 +3223,11 @@ def phase_remat_train(smi, tar, batch):
     generator states must give the same bits, and kernel #1 launches twice
     as often under remat (the recompute runs it again).  Then whole steps
     (clip and AdamW included) in turns, plain, remat, remat, plain: wall
-    and peak memory.  Returns the launches of the two checked steps."""
+    and peak memory; then the same step in f32, ``cli.train``'s default
+    (no ``--bf16``; TF32 as torch sets it by default: off for matmuls, on
+    for cuDNN's convolutions), warm: wall, peak memory and launches.
+    Returns the launches of the two checked steps and the timed f32
+    steps."""
     import torch
     from prompt_tts_tpu_torch.config import Config
     from prompt_tts_tpu_torch.data.dataset import CodeDataset
@@ -3262,6 +3292,21 @@ def phase_remat_train(smi, tar, batch):
             walls[r].append(time.perf_counter() - t0)
             peaks[r] = max(peaks[r],
                            torch.cuda.max_memory_allocated() / 2**30)
+    # cli.train's default dtype: the same step in f32, warm
+    set_compute_dtype_(model, None)
+    f32_step = make_train_step(state, sched)
+    f32_step(dev_batch, gen)
+    torch.cuda.synchronize()
+    f32_walls, f32_peak, f32_steps = [], 0.0, 3
+    zero_counts()
+    for _ in range(f32_steps):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        f32_loss = f32_step(dev_batch, gen)
+        torch.cuda.synchronize()
+        f32_walls.append(time.perf_counter() - t0)
+        f32_peak = max(f32_peak, torch.cuda.max_memory_allocated() / 2**30)
+    launches["f32"] = counts()
     want = want_counts(attention_fwd=ATTN_CALLS,
                        attention_bwd=LAUNCHES_PER_CALL * ATTN_CALLS)
     checks = {
@@ -3271,6 +3316,10 @@ def phase_remat_train(smi, tar, batch):
         "launches_plain": launches["plain"] == want,
         "launches_remat": launches["remat"] == dict(
             want, attention_fwd=2 * ATTN_CALLS),
+        "f32_finite": all(bool(torch.isfinite(v)) for v in
+                          f32_loss.values()),
+        "launches_f32": launches["f32"] == {k: f32_steps * n
+                                            for k, n in want.items()},
     }
     emit({"phase": "remat_train", "what": f"train step ModelConfig() bf16 "
           f"B={batch}, dropout 0.1, without and with remat (each resnet "
@@ -3282,13 +3331,21 @@ def phase_remat_train(smi, tar, batch):
           "median_step_s": {"plain": statistics.median(walls[False]),
                             "remat": statistics.median(walls[True])},
           "peak_mem_gib": {"plain": peaks[False], "remat": peaks[True]},
+          "f32_step": {"what": f"the same step in f32 (cli.train without "
+                               f"--bf16), warm, B={batch}",
+                       "step_s": f32_walls,
+                       "median_step_s": statistics.median(f32_walls),
+                       "examples_per_s": batch / statistics.median(
+                           f32_walls),
+                       "peak_mem_gib": f32_peak},
           "card": smi})
     if not all(checks.values()):
         raise AssertionError(f"remat train checks failed: {checks}")
-    del steps, state, model
+    del steps, f32_step, state, model
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: launches["plain"][k] + launches["remat"][k] for k in KERNELS}
+    return {k: sum(launches[r][k] for r in ("plain", "remat", "f32"))
+            for k in KERNELS}
 
 
 def phase_train_cli_extras(smi, tar, tmp):
@@ -3387,8 +3444,9 @@ def phase_evaluate(smi, tar, ckpt, prompt_ckpt, prompt_cfg, batch):
     checkpoint (raw) twice, the prompt train slice's (``--ema``) twice and
     raw once.  Two runs give the same JSON, the EMA scores apart from the
     parameters, the flagship run launches kernels #1 and #6 (f32) for 6
-    forwards a batch; then one batch's wall in process.  Returns the
-    launches of the CLI runs."""
+    forwards a batch; then one batch's wall in process, and kernels #1's
+    and #6's f32 paths at the batch's shapes beside their library calls.
+    Returns the launches of the CLI runs."""
     import numpy as np
     import torch
     from prompt_tts_tpu_torch.cli import evaluate as cli
@@ -3461,7 +3519,9 @@ def phase_evaluate(smi, tar, ckpt, prompt_ckpt, prompt_cfg, batch):
                 eval_generator(torch.device("cuda"), 0, 0))
             float(loss), [float(a) for a in at]
             batch_s.append(time.perf_counter() - t0)
-    attn = _attention_f32_times(batch)
+    with full_f32():
+        attn = _attention_f32_times(batch)
+        resnet_f32 = _resnet_f32_times(batch)
     emit({"phase": "evaluate", "what": f"cli.evaluate ModelConfig() f32 "
           f"--batch_size {batch} --max_batches 2, grid 50..950: the flagship "
           f"train slice's checkpoint, the prompt one's EMA and raw",
@@ -3470,7 +3530,7 @@ def phase_evaluate(smi, tar, ckpt, prompt_ckpt, prompt_cfg, batch):
           "want_launches_flagship": want,
           "batch_wall_s": batch_s[1:], "note": "batch_wall_s: one batch's "
           "6 f32 forwards (eval + 5 grid points), warm, in process",
-          "attention_f32": attn, "card": smi})
+          "attention_f32": attn, "resnet_f32": resnet_f32, "card": smi})
     if not all(checks.values()):
         raise AssertionError(f"evaluate checks failed: {checks}")
     del model
@@ -3482,15 +3542,15 @@ def phase_evaluate(smi, tar, ckpt, prompt_ckpt, prompt_cfg, batch):
 def _attention_f32_times(B):
     """Kernel #1's f32 path at the evaluate path's shapes (one forward's
     36 calls at batch ``B``): the kernel, its plain version and SDPA by
-    CUDA events, summed over the calls, with the bound at the f32 CUDA
-    cores' peak."""
+    CUDA events, summed over the calls, with the bounds (``attn_bound``:
+    3 x TF32, and the f32 CUDA cores') and the exp floor."""
     import torch
     from prompt_tts_tpu_torch.ops.attention import attention_plain
     from prompt_tts_tpu_torch.ops.cuda import opcount
     from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
     g = torch.Generator("cuda").manual_seed(0)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    flop = nbytes = 0
+    flop = nbytes = exps = 0
     with torch.no_grad():
         for _, Tq, Tk, H, D, masked, n in attn_cases():
             q, k, v, bias = attn_inputs(g, B, Tq, Tk, H, D, masked,
@@ -3502,11 +3562,51 @@ def _attention_f32_times(B):
             flop += n * opcount.attention_fwd(B, Tq, Tk, H, D)
             nbytes += n * (4 * 2 * B * H * D * (Tq + Tk)
                            + (4 * B * Tk if masked else 0))
+            exps += n * B * H * Tq * Tk
             del q, k, v, bias
+    torch.cuda.empty_cache()
+    b = attn_bound(flop, nbytes, "float32")
+    del b["flop"], b["bytes"]
+    return {**tot, **b, "exp_ms": exp_floor(exps),
+            "unit": f"one forward's {ATTN_CALLS} calls, f32, B={B}"}
+
+
+def _resnet_f32_times(B):
+    """Kernel #6's f32 path at the evaluate path's shapes (one UNet
+    forward's 22 blocks at batch ``B``; measurement only): the wrapper and
+    the library sequence (``resnet_sequence``, channels-first) by CUDA
+    events, summed over the blocks, with the bound at the f32 CUDA cores'
+    peak.  Run with TF32 off, as the evaluate path runs."""
+    import torch
+    import torch.nn.functional as F
+    from prompt_tts_tpu_torch.ops.cuda import opcount
+    from prompt_tts_tpu_torch.ops.cuda.resnet import fused_resnet_block
+    g = torch.Generator().manual_seed(12)
+    tot = {"ms": 0.0, "library_ms": 0.0}
+    flop = nbytes = blocks = 0
+    with torch.no_grad():
+        for T, cin, cout, n in _distinct_shapes():
+            block = _resnet_block(cin, cout, torch.float32, g)
+            norm = block.norm1.norm
+            x = (torch.randn(B, T, cin, generator=g) * 1.5
+                 + torch.randn(cin, generator=g)).to("cuda")
+            tp = block.time_emb_proj(
+                F.silu(torch.randn(B, 1024, generator=g).to("cuda")))
+            xc = x.transpose(1, 2).contiguous()
+            tot["ms"] += n * cuda_ms(lambda: fused_resnet_block(
+                x, tp, block.kernel_weights, norm.num_groups, norm.eps), 5)
+            tot["library_ms"] += n * cuda_ms(
+                lambda: resnet_sequence(block, xc, tp), 5)
+            w = 3 * cin * cout + 3 * cout * cout + (
+                cin * cout if cin != cout else 0)
+            flop += n * opcount.resnet_block(B, T, cin, cout)
+            nbytes += n * 4 * (B * T * (cin + cout) + w)
+            blocks += n
+            del block, x, tp, xc
     torch.cuda.empty_cache()
     b = bound(flop, nbytes, "float32")
     return {**tot, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-            "unit": f"one forward's {ATTN_CALLS} calls, f32, B={B}"}
+            "unit": f"one UNet forward's {blocks} blocks, f32, B={B}"}
 
 
 def phase_export(smi, tmp, ckpt):
@@ -4399,6 +4499,99 @@ def phase_torchrun(smi, tmp):
                              f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
 
 
+def f32_times(smi):
+    """``--f32-times``: the f32 paths of kernels #1, #2 and #6, no checks;
+    only what the parent commits have too, so that two versions of the
+    package can be timed in turns in one call.  At B=32: kernel #1 at
+    ``cli.evaluate``'s shapes and #6 beside their library calls (TF32 off),
+    #1 with the lse and #2 over one train step's 36 calls (kernel, plain,
+    SDPA, bounds); then the flagship ``ModelConfig()`` on seeded random
+    weights and ``SyntheticDataset`` codes: a warm f32 train step (what
+    ``cli.train`` runs without ``--bf16``: wall and peak memory) and one
+    ``cli.evaluate`` batch (6 f32 forwards: wall)."""
+    import torch
+    from prompt_tts_tpu_torch.cli.evaluate import batch_losses
+    from prompt_tts_tpu_torch.config import Config
+    from prompt_tts_tpu_torch.data.dataset import SyntheticDataset
+    from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
+    from prompt_tts_tpu_torch.models.layers import cast_compute_
+    from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
+    from prompt_tts_tpu_torch.pipeline import full_f32, random_init_
+    from prompt_tts_tpu_torch.train.state import TrainState
+    from prompt_tts_tpu_torch.train.step import (
+        eval_generator, make_train_step,
+    )
+    B = TRAIN_BATCHES[0]
+    with full_f32():
+        emit({"phase": "f32_times", "kernel": "attention_fwd",
+              "evaluate": _attention_f32_times(B), "card": smi})
+        emit({"phase": "f32_times", "kernel": "resnet",
+              "evaluate": _resnet_f32_times(B), "card": smi})
+        g = torch.Generator("cuda").manual_seed(1)
+        tot = {"bwd": {}, "fwd": {}}
+        for label, Tq, Tk, H, D, masked, n in attn_cases():
+            t = _bwd_case_times(g, B, Tq, Tk, H, D, masked, torch.float32)
+            for key in tot:
+                for k in ("ms", "plain_ms", "library_ms", "flop", "bytes",
+                          "exps"):
+                    tot[key][k] = tot[key].get(k, 0) + n * t[key][k]
+        for key, name in (("fwd", "attention_fwd_lse"),
+                          ("bwd", "attention_bwd")):
+            d = tot[key]
+            exp_ms = exp_floor(d.pop("exps"))
+            b = attn_bound(d.pop("flop"), d.pop("bytes"), "float32")
+            emit({"phase": "f32_times", "kernel": name,
+                  "train": {**d, "bound_ms": b["bound_ms"],
+                            "bound_f32_cuda_cores_ms":
+                                b["bound_f32_cuda_cores_ms"],
+                            "exp_ms": exp_ms,
+                            "unit": f"one train step's {ATTN_CALLS} calls, "
+                                    f"f32, B={B}"},
+                  "card": smi})
+    cfg = Config()
+    dev = torch.device("cuda")
+    model = TTSSingleSpeaker(cfg.model, device=dev)
+    random_init_(model, torch.Generator().manual_seed(cfg.train.seed))
+    sched = linear_schedule(cfg.train.num_train_timesteps, device=dev)
+    host = next(SyntheticDataset(n=B).batches(B))
+    batch = {k: torch.from_numpy(host[k]).to(dev)
+             for k in ("codes", "text_ids", "text_mask")}
+    state = TrainState(model, cfg.train, 100)
+    step = make_train_step(state, sched)
+    gen = torch.Generator(dev).manual_seed(5)
+    step(batch, gen)
+    torch.cuda.synchronize()
+    walls, peak = [], 0.0
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+    del step, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    cast_compute_(model.eval(), torch.float32)
+    batch_s = []
+    with full_f32():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, at = batch_losses(model, sched, batch,
+                                    [50, 250, 500, 750, 950],
+                                    eval_generator(dev, 0, 0))
+            float(loss), [float(a) for a in at]
+            batch_s.append(time.perf_counter() - t0)
+    emit({"phase": "f32_times", "what": f"ModelConfig() f32, B={B}: a warm "
+          f"train step (cli.train without --bf16; TF32 as torch sets it) "
+          f"and one cli.evaluate batch (eval + 5 grid points, TF32 off)",
+          "train_step_s": walls,
+          "train_median_step_s": statistics.median(walls),
+          "train_peak_mem_gib": peak, "evaluate_batch_s": batch_s[1:],
+          "card": smi})
+
+
 def remat_times(smi):
     """The flagship bf16 train step at batch 32 on random codes, in turns
     (each variant twice, forward order then backward order): plain; the
@@ -4503,7 +4696,8 @@ def main():
              "--resnet-times": resnet_times,
              "--resnet-tiles": resnet_tile_sweep,
              "--synth-times": synth_times,
-             "--remat-times": remat_times}
+             "--remat-times": remat_times,
+             "--f32-times": f32_times}
     if any(a not in modes for a in sys.argv[1:]):
         raise SystemExit(f"chip_smoke: arguments are any of {list(modes)}")
     t_script = time.perf_counter()

@@ -14,7 +14,8 @@
 // K/V stream through shared memory in 64-key tiles with an online softmax,
 // so no [Tq,Tk] matrix touches device memory and the K/V panel never has to
 // fit on chip (the TPU kernel held the whole panel in VMEM; an SM has
-// 227 KB).  The dtype alone picks one of two kernels:
+// 227 KB).  Both dtypes run on the tensor cores; the dtype alone picks one
+// of two kernels:
 //
 // bf16: tensor cores (attn_fwd_tc_kernel).  The TPU kernel's numerics: f32
 // scores plus the f32 bias, f32 max, exp and sum, the unnormalised p rounded
@@ -46,10 +47,34 @@
 //   use wgmma's unswizzled core-matrix layout (wgmma.cuh), which takes
 //   every D, 96 included.
 //
-// f32: CUDA cores (attn_fwd_f32_kernel), kept for the f32 contracts (2e-5
-// on the kernel, 5e-4 on the model), which TF32 tensor cores would miss.
-// 4 warps of 16 query rows each; f32 FMAs with operands in shared memory,
-// p kept in f32.  Bound by shared-memory operand traffic and FMA issue.
+// f32: tensor cores too (attn_fwd_tf32_kernel), every product in 3 x TF32.
+// Plain TF32 (10 mantissa bits) misses the f32 contracts (2e-5 on the
+// kernel, 5e-4 on the model) by ~10x; so each operand is split, hi =
+// rna_tf32(x) and lo = rna_tf32(x - hi) (wgmma.cuh: split_tf32), and each
+// product is hi.lo + lo.hi + hi.hi with f32 accumulation, within ~2^-22 of
+// |a||b| a term (tests/test_torch_attention_tf32x3.py emulates it against
+// JAX's f32 attention).  The softmax is the bf16 kernel's in f32, and p
+// stays at f32 accuracy: it is split as well.
+//   What bounds it.  Three TF32 products are 3 x 4 D flops a score at 495
+//   TFLOP/s, against one exp: the products, 3.47 ms for the evaluate
+//   path's 36 calls at B = 32, where f32 FMAs on the CUDA cores could not
+//   go below 8.56 ms.  Within a warpgroup a tile's split, S, softmax and
+//   PV run one after another (PERF.md).
+//   Design.  .tf32 operands are K-major only, so V is stored transposed,
+//   V^T [D][keys], and every tile is held as hi and lo f32 tiles in the
+//   unswizzled core-matrix layout (wgmma.cuh, "3 x TF32 attention tiles").
+//   P goes to the PV product as register A fragments with no shuffles: the
+//   accumulator holds columns 2t, 2t + 1 of each 8 where a TF32 fragment
+//   takes t, t + 4, so the keys of V^T come permuted within each group of 8
+//   to match (acc_to_tf32, store_transposed).  Q's split is held as
+//   register fragments (D / 8 x 8 registers) at D <= 96, in shared memory
+//   at D = 128, which takes one warpgroup and reads K and V straight from
+//   device memory.  At D <= 96 a raw f32 copy of the next K and V tiles
+//   arrives by cp.async while this tile's products run, and all threads
+//   then split it into the tiles (16-byte reads and stores, no bank
+//   conflicts).  Two warpgroups share the tiles as in bf16 at D = 64 and 96
+//   on a large grid; one at D = 32, where two 128-thread CTAs fit on an SM
+//   (measured faster).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C interface,
 // loaded with ctypes by prompt_tts_tpu_torch/ops/cuda/attention.py).
@@ -80,169 +105,6 @@ cudaError_t opt_in(K kern, int smem, unsigned long long* configured) {
     *configured |= bit;
   }
   return cudaSuccess;
-}
-
-// ---------------------------------------------------------------- f32 ----
-
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kBK = 64;        // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kRows = kBQ / kWarps;   // query rows per warp (16)
-constexpr int kThreads = kWarps * 32;
-
-template <int D>
-constexpr int f32_smem_bytes() {
-  // Qs[kBQ][D] + Ks[kBK][D+1] + Vs[kBK][D] + Ps[kWarps][kRows][kBK] + bias[kBK]
-  return 4 * (kBQ * D + kBK * (D + 1) + kBK * D + kWarps * kRows * kBK + kBK);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ bias,
-                    float* __restrict__ o, float* __restrict__ lse, int Tq,
-                    int Tk, int H, float scale,
-                    long long sqb, long long sqt, long long sqh,
-                    long long skb, long long skt, long long skh,
-                    long long svb, long long svt, long long svh,
-                    long long sob, long long sot, long long soh) {
-  constexpr int NC = D / 32;   // output columns per lane
-  extern __shared__ float smem[];
-  float* Qs = smem;                       // [kBQ][D]
-  float* Ks = Qs + kBQ * D;               // [kBK][D+1] (padded: lanes read rows)
-  float* Vs = Ks + kBK * (D + 1);         // [kBK][D]
-  float* Ps = Vs + kBK * D;               // [kWarps][kRows][kBK]
-  float* Bs = Ps + kWarps * kRows * kBK;  // [kBK]
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  const float* qb = q + b * sqb + h * sqh;
-  const float* kb = k + b * skb + h * skh;
-  const float* vb = v + b * svb + h * svh;
-
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    Qs[e] = (q0 + r < Tq) ? qb[(q0 + r) * sqt + d] : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = -CUDART_INF_F;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  }
-  const float* Qw = Qs + warp * kRows * D;
-  float* Pw = Ps + warp * kRows * kBK;
-
-  for (int k0 = 0; k0 < Tk; k0 += kBK) {
-    const int kn = min(kBK, Tk - k0);
-    __syncthreads();  // previous tile fully consumed (and Qs staged)
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int j = e / D, d = e % D;
-      const bool ok = j < kn;
-      Ks[j * (D + 1) + d] = ok ? kb[(k0 + j) * skt + d] : 0.f;
-      Vs[j * D + d] = ok ? vb[(k0 + j) * svt + d] : 0.f;
-    }
-    for (int j = tid; j < kBK; j += kThreads)
-      Bs[j] = (j < kn && bias != nullptr) ? bias[(long long)b * Tk + k0 + j] : 0.f;
-    __syncthreads();
-
-    // scores: this lane's keys are (lane, lane + 32) for each of the warp's rows
-    float s[kRows][2];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float k0v = Ks[lane * (D + 1) + d];
-      const float k1v = Ks[(lane + 32) * (D + 1) + d];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float qv = Qw[r * D + d];
-        s[r][0] = fmaf(qv, k0v, s[r][0]);
-        s[r][1] = fmaf(qv, k1v, s[r][1]);
-      }
-    }
-
-    const bool ok0 = lane < kn, ok1 = lane + 32 < kn;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float a = ok0 ? s[r][0] * scale + Bs[lane] : -CUDART_INF_F;
-      const float c = ok1 ? s[r][1] * scale + Bs[lane + 32] : -CUDART_INF_F;
-      float mt = fmaxf(a, c);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      // every tile holds at least one valid key, so m_new is finite
-      const float m_new = fmaxf(m[r], mt);
-      const float alpha = expf(m[r] - m_new);
-      const float p0 = expf(a - m_new);
-      const float p1 = expf(c - m_new);
-      float ps = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[r] = l[r] * alpha + ps;
-      m[r] = m_new;
-#pragma unroll
-      for (int cc = 0; cc < NC; ++cc) acc[r][cc] *= alpha;
-      Pw[r * kBK + lane] = p0;
-      Pw[r * kBK + lane + 32] = p1;
-    }
-    __syncwarp();
-
-    for (int j = 0; j < kn; ++j) {
-      float vv[NC];
-#pragma unroll
-      for (int cc = 0; cc < NC; ++cc) vv[cc] = Vs[j * D + lane + 32 * cc];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = Pw[r * kBK + j];
-#pragma unroll
-        for (int cc = 0; cc < NC; ++cc) acc[r][cc] = fmaf(p, vv[cc], acc[r][cc]);
-      }
-    }
-    __syncwarp();
-  }
-
-  float* ob = o + b * sob + h * soh;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int t = q0 + warp * kRows + r;
-    if (t < Tq) {
-      const float inv = 1.f / l[r];
-#pragma unroll
-      for (int cc = 0; cc < NC; ++cc)
-        ob[t * sot + lane + 32 * cc] = acc[r][cc] * inv;
-      if (lse != nullptr && lane == 0)
-        lse[((long long)b * H + h) * Tq + t] = m[r] + logf(l[r]);
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const void* bias, void* o, void* lse, int B, int Tq,
-                       int Tk, int H, const long long* st,
-                       cudaStream_t stream) {
-  static unsigned long long configured = 0;
-  constexpr int smem = f32_smem_bytes<D>();
-  auto kern = attn_fwd_f32_kernel<D>;
-  cudaError_t err = opt_in(kern, smem, &configured);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<float*>(o), static_cast<float*>(lse), Tq, Tk, H,
-      rsqrtf((float)D), st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11]);
-  return cudaGetLastError();
 }
 
 // --------------------------------------------------------------- bf16 ----
@@ -442,56 +304,255 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- f32 ----
+
+// The f32 kernel's shared memory: the K tile [kKeys][D] and V^T [D][kKeys]
+// as TF32 hi and lo tiles, shared by the NWG warpgroups; at D <= 96 a raw
+// f32 copy of the next K and V tiles, which cp.async fills while this
+// tile's products run; at D = 128 Q's [kTile][D] hi and lo instead (its
+// fragments would take 128 registers a thread), NWG = 1, and K and V are
+// read straight from device memory.
+template <int D, int NWG>
+struct Tf32Fwd {
+  static constexpr bool kQRegs = D <= 96;
+  static constexpr int kNT = NWG * 128;
+  static constexpr int kBytes = kKeys * D * 4;   // one hi or lo K/V tile
+  static constexpr int kQBytes = kQRegs ? 0 : kTile * D * 4;
+  static constexpr int kRawBytes = kQRegs ? kKeys * raw_ld<D>() * 4 : 0;
+  static constexpr int kSmem = 4 * kBytes + 2 * kQBytes + 2 * kRawBytes;
+  static_assert(kSmem <= 232448, "shared memory");
+  static_assert(kQRegs || NWG == 1, "D = 128 takes one warpgroup");
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128, 1)
+attn_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias, float* __restrict__ o,
+                     float* __restrict__ lse, int Tq, int Tk, int H,
+                     float scale_log2,
+                     long long sqb, long long sqt, long long sqh,
+                     long long skb, long long skt, long long skh,
+                     long long svb, long long svt, long long svh,
+                     long long sob, long long sot, long long soh) {
+  using L = Tf32Fwd<D, NWG>;
+  constexpr int NT = L::kNT;
+  constexpr int NO = D / 2;        // O accumulator floats a thread
+  constexpr int NS = kKeys / 2;    // S accumulator floats a thread
+  constexpr int KS = D / 8;        // K steps of S = Q K^T
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t sKh = smem_u32(tc_smem), sKl = sKh + L::kBytes;
+  const uint32_t sVh = sKl + L::kBytes, sVl = sVh + L::kBytes;
+  const uint32_t sQh = sVl + L::kBytes, sQl = sQh + L::kQBytes;
+  const uint32_t sRK = sQl + L::kQBytes, sRV = sRK + L::kRawBytes;
+  const float* rawK = reinterpret_cast<const float*>(tc_smem + (sRK - sKh));
+  const float* rawV = reinterpret_cast<const float*>(tc_smem + (sRV - sKh));
+
+  const int wg = threadIdx.x / 128;
+  const int q0 = blockIdx.x * kTile * NWG + wg * kTile;   // this warpgroup's
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int tig = lane % 4;
+  // this thread's accumulator rows r0, r0 + 8 and columns c0, c0 + 1 of
+  // every 8
+  const int r0 = 16 * warp + lane / 4;
+  const int c0 = 2 * tig;
+
+  const float* kb = k + b * skb + h * skh;
+  const float* vb = v + b * svb + h * svh;
+  const float* biasb = bias != nullptr ? bias + (long long)b * Tk : nullptr;
+  const float* qb = q + b * sqb + h * sqh + q0 * sqt;
+
+  if constexpr (L::kQRegs) {   // tile 0's raw copies fly while Q is split
+    stage_raw<kKeys, D, NT>(sRK, kb, skt, Tk);
+    stage_raw<kKeys, D, NT>(sRV, vb, svt, Tk);
+    cp_async_commit();
+  }
+  uint32_t qh[L::kQRegs ? KS : 1][4], ql[L::kQRegs ? KS : 1][4];
+  if constexpr (L::kQRegs)
+    load_a_tf32<D>(qb, sqt, Tq - q0, r0, tig, qh, ql);
+  else
+    split_kmajor<kTile, D, NT>(sQh, sQl, qb, sqt, Tq - q0);
+
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};   // running max, log2 units
+  float l[2] = {0.f, 0.f};                       // this thread's partial sums
+  const int ntiles = (Tk + kKeys - 1) / kKeys;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * kKeys;
+    if constexpr (L::kQRegs) {
+      cp_async_wait<0>();
+      __syncthreads();   // the raw tile is in; the last tile's products done
+      {
+        float4 x[Kmajor<kKeys, D, NT>::kN];
+        load_kmajor<kKeys, D, NT, false>(x, rawK, raw_ld<D>(), kKeys);
+        store_kmajor<kKeys, D, NT>(sKh, sKl, x);
+      }
+      {
+        float4 x[Transposed<kKeys, D, NT>::kN][4];
+        load_transposed<kKeys, D, NT, false>(x, rawV, raw_ld<D>(), kKeys);
+        store_transposed<kKeys, D, NT>(sVh, sVl, x);
+      }
+      fence_async_smem();
+      __syncthreads();   // the tiles are in; the raw panels are free
+      if (it + 1 < ntiles) {
+        const int k1 = k0 + kKeys;
+        stage_raw<kKeys, D, NT>(sRK, kb + k1 * skt, skt, Tk - k1);
+        stage_raw<kKeys, D, NT>(sRV, vb + k1 * svt, svt, Tk - k1);
+        cp_async_commit();
+      }
+    } else {
+      __syncthreads();   // every warp's products of the last tile are done
+      split_kmajor<kKeys, D, NT>(sKh, sKl, kb + k0 * skt, skt, Tk - k0);
+      split_transposed<kKeys, D, NT>(sVh, sVl, vb + k0 * svt, svt, Tk - k0);
+      fence_async_smem();
+      __syncthreads();
+    }
+
+    float s[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    wgmma_fence();
+    if constexpr (L::kQRegs)
+      mma3_rs<D>(s, qh, ql, sKh, sKl, 0);
+    else
+      mma3_ss<D>(s, sQh, sQl, sKh, sKl, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    if (k0 + kKeys <= Tk)
+      scale_bias<true>(s, mx, biasb, k0, c0, Tk, scale_log2);
+    else
+      scale_bias<false>(s, mx, biasb, k0, c0, Tk, scale_log2);
+    float alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // every tile holds at least one key < Tk, so the new max is finite
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * j + e] = ex2(s[4 * j + e] - m[0]);
+        s[4 * j + 2 + e] = ex2(s[4 * j + 2 + e] - m[1]);
+        ls[0] += s[4 * j + e];
+        ls[1] += s[4 * j + 2 + e];
+      }
+    }
+    l[0] = l[0] * alpha[0] + ls[0];
+    l[1] = l[1] * alpha[1] + ls[1];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j + 0] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+    uint32_t ph[NS / 4][4], pl[NS / 4][4];
+    acc_to_tf32(s, ph, pl);   // the unnormalised p, split
+    wgmma_fence();
+    mma3_rs<kKeys>(acc, ph, pl, sVh, sVl, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  float* ob = o + b * sob + h * soh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int t = q0 + r0 + 8 * r;
+    if (t < Tq) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(ob + t * sot + 8 * j + c0) =
+            make_float2(acc[4 * j + 2 * r] / l[r],
+                        acc[4 * j + 2 * r + 1] / l[r]);
+      if (lse != nullptr && tig == 0)
+        lse[((long long)b * H + h) * Tq + t] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+}
+
+template <int D, int NWG>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        const void* bias, void* o, void* lse, int B, int Tq,
+                        int Tk, int H, const long long* st,
+                        cudaStream_t stream) {
+  static unsigned long long configured = 0;
+  constexpr int smem = Tf32Fwd<D, NWG>::kSmem;
+  auto kern = attn_fwd_tf32_kernel<D, NWG>;
+  cudaError_t err = opt_in(kern, smem, &configured);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tq + kTile * NWG - 1) / (kTile * NWG), H, B);
+  kern<<<grid, NWG * 128, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<float*>(o), static_cast<float*>(lse), Tq, Tk, H,
+      rsqrtf((float)D) * kLog2e, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], st[10], st[11]);
+  return cudaGetLastError();
+}
+
 // Two warpgroups a CTA (K/V tiles shared by 128 query rows) when the
 // 128-row grid still puts a CTA on every SM, else one: the shape decides,
-// nothing else.
+// nothing else.  f32 takes one at D = 32 too (two 128-thread CTAs then fit
+// on an SM and run out of step, which measured faster) and at D = 128.
 template <int D>
-cudaError_t launch_tc_by_shape(const void* q, const void* k, const void* v,
-                               const void* bias, void* o, void* lse, int B,
-                               int Tq, int Tk, int H, const long long* st,
-                               cudaStream_t stream) {
+cudaError_t launch_by_shape(int dtype, const void* q, const void* k,
+                            const void* v, const void* bias, void* o,
+                            void* lse, int B, int Tq, int Tk, int H,
+                            const long long* st, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const long long ctas2 = (long long)((Tq + 2 * kTile - 1) / (2 * kTile)) * H * B;
-  if (ctas2 >= sms)
-    return launch_tc<D, 2>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, stream);
-  return launch_tc<D, 1>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, stream);
+  const bool two = ctas2 >= sms;
+  if (dtype == 1)
+    return two ? launch_tc<D, 2>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, stream)
+               : launch_tc<D, 1>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, stream);
+  if constexpr (D == 64 || D == 96) {
+    if (two)
+      return launch_tf32<D, 2>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, stream);
+  }
+  return launch_tf32<D, 1>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, stream);
 }
 
 cudaError_t dispatch(int D, int dtype, const void* q, const void* k,
                      const void* v, const void* bias, void* o, void* lse,
                      int B, int Tq, int Tk, int H, const long long* st,
                      cudaStream_t s) {
-  if (dtype == 0) {
-    switch (D) {
-      case 32: return launch_f32<32>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, s);
-      case 64: return launch_f32<64>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, s);
-      case 96: return launch_f32<96>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, s);
-      case 128: return launch_f32<128>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, s);
-      default: return cudaErrorInvalidValue;
-    }
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return launch_by_shape<32>(dtype, q, k, v, bias, o, lse, B, Tq, Tk, H, st, s);
+    case 64: return launch_by_shape<64>(dtype, q, k, v, bias, o, lse, B, Tq, Tk, H, st, s);
+    case 96: return launch_by_shape<96>(dtype, q, k, v, bias, o, lse, B, Tq, Tk, H, st, s);
+    case 128: return launch_by_shape<128>(dtype, q, k, v, bias, o, lse, B, Tq, Tk, H, st, s);
+    default: return cudaErrorInvalidValue;
   }
-  if (dtype == 1) {
-    switch (D) {
-      case 32: return launch_tc_by_shape<32>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, s);
-      case 64: return launch_tc_by_shape<64>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, s);
-      case 96: return launch_tc_by_shape<96>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, s);
-      case 128: return launch_tc_by_shape<128>(q, k, v, bias, o, lse, B, Tq, Tk, H, st, s);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  strides:
-// 12 element strides, (batch, time, head) for q, k, v, o in that order; the
-// head_dim stride must be 1, and for bf16 every pointer and stride must
-// give 16-byte aligned rows (the wrapper checks).  bias: [B, Tk] float32 or
+// dtype: 0 = float32 (3 x TF32), 1 = bfloat16.  strides: 12 element
+// strides, (batch, time, head) for q, k, v, o in that order; the head_dim
+// stride must be 1, and every pointer and stride must give 16-byte aligned
+// rows (the wrapper checks).  bias: [B, Tk] float32 or
 // null.  lse: [B, H, Tq] float32 out, or null.  Returns cudaGetLastError()
 // after launch.
 extern "C" int ptts_attention_fwd(const void* q, const void* k, const void* v,

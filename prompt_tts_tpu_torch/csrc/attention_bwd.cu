@@ -52,11 +52,33 @@
 //   one is bound by latency: within a tile the score products, the
 //   elementwise p and ds, and the gradient products run one after another.
 //
-// f32: CUDA cores (attn_bwd_*_f32_kernel), kept for the f32 contracts,
-// which TF32 tensor cores would miss.  256 threads as a 16 x 16 grid own
-// strided 4 x 4 micro-tiles (rows ty + 16i, columns tx + 16j), so
-// shared-memory reads are conflict-free or broadcast; p and ds stay f32.
-// Bound by FMA issue and shared-memory bandwidth.
+// f32: tensor cores too (attn_bwd_*_tf32_kernel), every product in 3 x
+// TF32 as in the forward (attention.cu): each operand split into hi and lo
+// TF32 parts, hi.lo + lo.hi + hi.hi with f32 accumulation; p and ds * scale
+// split like any operand, so they keep f32 accuracy.  .tf32 operands are
+// K-major only, so the products that contract over rows take them
+// transposed: K^T [D][keys] in the dq pass, Q^T and dO^T [D][rows] in the
+// dk/dv pass, keys and rows permuted within each group of 8 to match the
+// accumulator's fragments (wgmma.cuh, "3 x TF32 attention tiles").  dq
+// pass: Q's split as register fragments (in shared memory at D = 128), dO
+// and the key tiles K, V, K^T as hi and lo tiles; S = Q K^T, dP = dO V^T,
+// dQ += (dS scale) K.  dk/dv pass: K and V as hi and lo tiles, per query
+// tile Q, dO, Q^T, dO^T; S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK +=
+// (dS^T scale) Q.  Shared memory holds it all: 64-key tiles in pass 1 (32
+// at D = 128), query tiles of 64 rows at D <= 64, 32 at D = 96, 16 at D =
+// 128 in pass 2.  Where there is room beside them (pass 1 at D <= 64, pass
+// 2 at D >= 64) a raw f32 copy of the next tile arrives by cp.async while
+// this tile's products run, and all threads then split it from shared
+// memory; elsewhere a tile is loaded (16-byte loads, all issued before the
+// first store) and split before its products.  At D = 64 and 96 two
+// warpgroups a CTA split each streamed tile (pass 1 its keys, pass 2 its
+// query rows) and add their partial sums at the end in a fixed order, so
+// two runs still give the same bits; at D = 32 one, so that two CTAs fit
+// on an SM (measured faster).
+//   What bounds it.  Seven products of 3 x 4 D flops a score at 495 TFLOP/s
+//   (5 counted in the bound, as the TPU kernel's), against two exps.  Within
+//   a CTA the tile's split, its score products, the elementwise p and ds
+//   and its gradient products run one after another (PERF.md).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C interface,
 // loaded with ctypes by prompt_tts_tpu_torch/ops/cuda/attention_bwd.py).
@@ -88,312 +110,513 @@ cudaError_t opt_in(K kern, int smem, unsigned long long* configured) {
   return cudaSuccess;
 }
 
+constexpr int kB = 64;            // query rows of a dq CTA, keys of a dk/dv CTA
+
 // ---------------------------------------------------------------- f32 ----
 
-constexpr int kB = 64;            // query rows per q tile, keys per k tile
-constexpr int kTy = 16;           // thread grid 16 x 16
-constexpr int kThreads = kTy * kTy;
-constexpr int kLdp = kB + 1;      // padded row of a [64][64] p/ds tile
+// Both f32 passes run NWG warpgroups a CTA, which split each streamed tile
+// between them (pass 1 its keys, pass 2 its query rows): twice the threads
+// for the tile's copies and two independent chains of products, in the
+// same shared memory.  Each warpgroup keeps partial sums of the CTA's
+// outputs; at the end warpgroup 1 hands its sums over through shared
+// memory and warpgroup 0 adds them, always in that order.
 
-// Rows [0, n) of a [rows, H*D] panel (row stride ld elements) into a padded
-// f32 tile dst[64][D+1]; rows n..63 are zero.
-template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* src, long long ld,
-                                      int n) {
-  for (int e = threadIdx.x; e < kB * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    dst[r * (D + 1) + d] = r < n ? src[r * ld + d] : 0.f;
-  }
-}
+// Pass 1 (f32)'s shared memory: dO [kB][D] (and at D = 128 Q too, whose
+// fragments would not fit in registers beside the rest), and per key tile
+// K and V [kBK][D] and K^T [D][kBK], each as TF32 hi and lo tiles; then the
+// rows' lse and delta.  At D = 128 the key tiles hold 32 keys, so that the
+// whole fits in 227 KB.
+template <int D, int NWG>
+struct Tf32Dq {
+  static constexpr bool kQRegs = D <= 96;
+  static constexpr int kBK = D <= 96 ? 64 : 32;
+  static constexpr int kWK = kBK / NWG;            // keys a warpgroup takes
+  static constexpr int kRowBytes = kB * D * 4;     // dO's (Q's) hi or lo
+  static constexpr int kKeyBytes = kBK * D * 4;    // one hi or lo key tile
+  // at D <= 64 raw f32 copies of the next K and V tiles, which cp.async
+  // fills while this tile's products run (there is no room at D >= 96)
+  static constexpr bool kStage = D <= 64;
+  static constexpr int kRawBytes = kStage ? kBK * raw_ld<D>() * 4 : 0;
+  static constexpr int kSmem = 2 * kRowBytes * (kQRegs ? 1 : 2)
+      + 6 * kKeyBytes + 2 * kRawBytes + 2 * kB * 4;
+  static_assert(kSmem <= 232448, "shared memory");
+  // warpgroup 1's dq sums (128 threads x D / 2) go where the K tile was
+  static_assert(NWG == 1 || 128 * D / 2 * 4 <= 2 * kKeyBytes,
+                "reduction space");
+};
 
-// s = Q K^T and dp = dO V^T for this thread's rows ty + 16i and columns
-// tx + 16j of a 64 x 64 tile.
-template <int D>
-__device__ __forceinline__ void scores(const float* Qs, const float* dOs,
-                                       const float* Ks, const float* Vs,
-                                       int ty, int tx, float s[4][4],
-                                       float dp[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(ty + kTy * i) * (D + 1) + d];
-      ov[i] = dOs[(ty + kTy * i) * (D + 1) + d];
-      kv[i] = Ks[(tx + kTy * i) * (D + 1) + d];
-      vv[i] = Vs[(tx + kTy * i) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-      }
-  }
-}
+// Pass 2 (f32)'s shared memory: the CTA's K and V [kB][D], and per query
+// tile Q and dO [kBQ][D] and Q^T and dO^T [D][kBQ], each as hi and lo; then
+// the tile's lse and delta.  The query tiles shrink with D to fit 227 KB.
+template <int D, int NWG>
+struct Tf32Dkv {
+  static constexpr int kBQ = D <= 64 ? 64 : D <= 96 ? 32 : 16;
+  static constexpr int kWQ = kBQ / NWG;            // rows a warpgroup takes
+  static constexpr int kKeyBytes = kB * D * 4;     // K's or V's hi or lo
+  static constexpr int kRowBytes = kBQ * D * 4;    // one hi or lo query tile
+  // at D >= 64 raw f32 copies of the next query tile's Q, dO, lse and
+  // delta, which cp.async fills while this tile's products run (at D = 32
+  // they would cost the second CTA an SM)
+  static constexpr bool kStage = D >= 64;
+  static constexpr int kRawBytes = kStage ? kBQ * raw_ld<D>() * 4 : 0;
+  static constexpr int kSmem = 4 * kKeyBytes + 8 * kRowBytes
+      + 2 * kRawBytes + (kStage ? 4 : 2) * kBQ * 4;
+  static_assert(kSmem <= 232448, "shared memory");
+  // warpgroup 1's dk and dv sums (128 threads x D) and bias gradient sums
+  // (128 x 2) go where the query tiles were
+  static_assert(NWG == 1 || 128 * (D + 2) * 4 <= 8 * kRowBytes,
+                "reduction space");
+};
 
-template <int D>
-constexpr int dq_f32_smem_bytes() {
-  // Qs, dOs, Ks, Vs [64][D+1]; dSs [64][65]; lse, delta, bias [64]
-  return 4 * (4 * kB * (D + 1) + kB * kLdp + 3 * kB);
-}
-
-template <int D>
-constexpr int dkv_f32_smem_bytes() {
-  // Qs, dOs, Ks, Vs [64][D+1]; Ps, dSs [64][65]; lse, delta, bias [64]
-  return 4 * (4 * kB * (D + 1) + 2 * kB * kLdp + 3 * kB);
-}
-
-// Pass 1: delta and dq for 64 query rows of one (head, batch).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_f32_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ o,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ lse,
-                       float* __restrict__ delta, float* __restrict__ dq,
-                       int Tq, int Tk, int H, float scale) {
-  constexpr int NJ = D / kTy;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kB * (D + 1);
-  float* Ks = dOs + kB * (D + 1);
-  float* Vs = Ks + kB * (D + 1);
-  float* dSs = Vs + kB * (D + 1);
-  float* Ls = dSs + kB * kLdp;
-  float* Ds = Ls + kB;
-  float* Bs = Ds + kB;
+// Pass 1 (f32): delta and dq for 64 query rows of one (head, batch).
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128, 1)
+attn_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ o,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ lse,
+                        float* __restrict__ delta, float* __restrict__ dq,
+                        int Tq, int Tk, int H, float scale) {
+  using L = Tf32Dq<D, NWG>;
+  constexpr int NT = NWG * 128;
+  constexpr int kBK = L::kBK, kWK = L::kWK;
+  constexpr int NS = kWK / 2;      // S and dP accumulator floats a thread
+  constexpr int KS = D / 8;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t sdOh = smem_u32(tc_smem), sdOl = sdOh + L::kRowBytes;
+  const uint32_t sKh = sdOl + L::kRowBytes, sKl = sKh + L::kKeyBytes;
+  const uint32_t sVh = sKl + L::kKeyBytes, sVl = sVh + L::kKeyBytes;
+  const uint32_t sTh = sVl + L::kKeyBytes, sTl = sTh + L::kKeyBytes;
+  const uint32_t sQh = sTl + L::kKeyBytes, sQl = sQh + L::kRowBytes;
+  const uint32_t sRK = sQh + (L::kQRegs ? 0 : 2 * L::kRowBytes);
+  const uint32_t sRV = sRK + L::kRawBytes;
+  const float* rawK = reinterpret_cast<const float*>(tc_smem + (sRK - sdOh));
+  const float* rawV = reinterpret_cast<const float*>(tc_smem + (sRV - sdOh));
+  float* Ls = reinterpret_cast<float*>(
+      tc_smem + L::kSmem - 2 * kB * 4);                        // [64]
+  float* Ds = Ls + kB;                                         // [64]
 
   const int q0 = blockIdx.x * kB;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int qn = min(kB, Tq - q0);
-  const int tx = threadIdx.x % kTy, ty = threadIdx.x / kTy;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128, t128 = threadIdx.x % 128;
+  const int warp = t128 / 32, lane = threadIdx.x % 32;
+  const int tig = lane % 4;
+  const int r0 = 16 * warp + lane / 4;   // accumulator rows r0, r0 + 8
+  const int c0 = 2 * tig;                // columns c0, c0 + 1 of every 8
   const long long ld = (long long)H * D;                  // row stride
   const long long qoff = ((long long)b * Tq + q0) * ld + (long long)h * D;
   const long long koff = (long long)b * Tk * ld + (long long)h * D;
   const long long row0 = ((long long)b * H + h) * Tq + q0;   // lse/delta
+  const float scale_log2 = scale * kLog2e;
+  const float* biasb = bias != nullptr ? bias + (long long)b * Tk : nullptr;
+  // this warpgroup's keys of a tile: its rows of the K and V tiles, its K
+  // steps of K^T
+  const uint32_t wK = wg * kWK * D * 4, wT = wg * (kWK / 8) * 256;
 
-  stage<D>(Qs, q + qoff, ld, qn);
-  stage<D>(dOs, dout + qoff, ld, qn);
-  // delta = rowsum(do * o), one warp per row, o read straight from memory
-  for (int r = warp; r < kB; r += kThreads / 32) {
+  if constexpr (L::kStage) {   // key tile 0's copies fly meanwhile
+    stage_raw<kBK, D, NT>(sRK, k + koff, ld, Tk);
+    stage_raw<kBK, D, NT>(sRV, v + koff, ld, Tk);
+    cp_async_commit();
+  }
+  uint32_t qh[L::kQRegs ? KS : 1][4], ql[L::kQRegs ? KS : 1][4];
+  if constexpr (L::kQRegs)
+    load_a_tf32<D>(q + qoff, ld, qn, r0, tig, qh, ql);
+  else
+    split_kmajor<kB, D, NT>(sQh, sQl, q + qoff, ld, qn);
+  split_kmajor<kB, D, NT>(sdOh, sdOl, dout + qoff, ld, qn);
+
+  if (threadIdx.x < 128) {   // delta = rowsum(do * o): two threads a row
+    const int r = threadIdx.x / 2, half = threadIdx.x % 2;
     float acc = 0.f;
-    if (r < qn)
-      for (int d = lane; d < D; d += 32)
-        acc = fmaf(dout[qoff + r * ld + d], o[qoff + r * ld + d], acc);
+    if (r < qn) {
+      const long long off = qoff + r * ld + half * (D / 2);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
+      for (int d = 0; d < D / 2; d += 4) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(dout + off + d));
+        const float4 y = __ldg(reinterpret_cast<const float4*>(o + off + d));
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+        acc = fmaf(x.z, y.z, acc);
+        acc = fmaf(x.w, y.w, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
       Ds[r] = acc;
-      Ls[r] = r < qn ? lse[row0 + r] : 0.f;
+      Ls[r] = r < qn ? lse[row0 + r] * kLog2e : 0.f;
       if (r < qn) delta[row0 + r] = acc;
     }
   }
-
-  float acc[4][NJ];
+  __syncthreads();
+  float lse2[2], dl[2];
+  bool rok[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < Tk; k0 += kB) {
-    const int kn = min(kB, Tk - k0);
-    __syncthreads();   // previous tile consumed (and Qs/dOs/Ds/Ls staged)
-    stage<D>(Ks, k + koff + k0 * ld, ld, kn);
-    stage<D>(Vs, v + koff + k0 * ld, ld, kn);
-    for (int j = threadIdx.x; j < kB; j += kThreads)
-      Bs[j] = (j < kn && bias != nullptr) ? bias[(long long)b * Tk + k0 + j] : 0.f;
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    scores<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + kTy * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + kTy * j;
-        float ds = 0.f;
-        if (r < qn && c < kn) {
-          const float p = expf(s[i][j] * scale + Bs[c] - Ls[r]);
-          ds = p * (dp[i][j] - Ds[r]);
-        }
-        dSs[r * kLdp + c] = ds;
-      }
-    }
-    __syncthreads();
-
-    for (int c = 0; c < kn; ++c) {
-      float dsv[4], kv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty + kTy * i) * kLdp + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kv[j] = Ks[c * (D + 1) + tx + kTy * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
+  for (int r = 0; r < 2; ++r) {
+    lse2[r] = Ls[r0 + 8 * r];
+    dl[r] = Ds[r0 + 8 * r];
+    rok[r] = r0 + 8 * r < qn;
   }
 
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + kTy * i;
-    if (r < qn) {
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const int ntiles = (Tk + kBK - 1) / kBK;
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * kBK;
+    if constexpr (L::kStage) {
+      cp_async_wait<0>();
+      __syncthreads();   // the raw tiles are in; the last products done
+      {
+        using N = Kmajor<kBK, D, NT>;
+        float4 xk[N::kN], xv[N::kN];
+        load_kmajor<kBK, D, NT, false>(xk, rawK, raw_ld<D>(), kBK);
+        load_kmajor<kBK, D, NT, false>(xv, rawV, raw_ld<D>(), kBK);
+        store_kmajor<kBK, D, NT>(sKh, sKl, xk);
+        store_kmajor<kBK, D, NT>(sVh, sVl, xv);
+      }
+      {
+        float4 x[Transposed<kBK, D, NT>::kN][4];
+        load_transposed<kBK, D, NT, false>(x, rawK, raw_ld<D>(), kBK);
+        store_transposed<kBK, D, NT>(sTh, sTl, x);
+      }
+      fence_async_smem();
+      __syncthreads();   // the tiles are in; the raw panels are free
+      if (it + 1 < ntiles) {
+        const long long next = koff + (k0 + kBK) * ld;
+        stage_raw<kBK, D, NT>(sRK, k + next, ld, Tk - k0 - kBK);
+        stage_raw<kBK, D, NT>(sRV, v + next, ld, Tk - k0 - kBK);
+        cp_async_commit();
+      }
+    } else {
+      const float* kt = k + koff + k0 * ld;
+      __syncthreads();   // every warp's products of the last tile are done
+      split_kmajor<kBK, D, NT>(sKh, sKl, kt, ld, Tk - k0);
+      split_kmajor<kBK, D, NT>(sVh, sVl, v + koff + k0 * ld, ld, Tk - k0);
+      split_transposed<kBK, D, NT>(sTh, sTl, kt, ld, Tk - k0);
+      fence_async_smem();
+      __syncthreads();
+    }
+
+    float s[NS], dp[NS];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        dq[qoff + r * ld + tx + kTy * j] = acc[i][j] * scale;
+    for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+    if constexpr (L::kQRegs)
+      mma3_rs<D>(s, qh, ql, sKh + wK, sKl + wK, 0);
+    else
+      mma3_ss<D>(s, sQh, sQl, sKh + wK, sKl + wK, 0);
+    mma3_ss<D>(dp, sdOh, sdOl, sVh + wK, sVl + wK, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // s <- ds * scale, from p = exp2(s scale log2e + bias log2e - lse log2e)
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + wg * kWK + 8 * j + c0 + e;
+        const bool ok = col < Tk;
+        const float bl = (ok && biasb != nullptr) ? __ldg(biasb + col) * kLog2e
+                                                  : 0.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r + e;
+          const float p = (ok && rok[r])
+              ? ex2(fmaf(s[i], scale_log2, bl - lse2[r])) : 0.f;
+          s[i] = p * (dp[i] - dl[r]) * scale;
+        }
+      }
+    }
+    uint32_t fh[NS / 4][4], fl[NS / 4][4];
+    acc_to_tf32(s, fh, fl);
+    wgmma_fence();
+    mma3_rs<kBK>(acc, fh, fl, sTh + wT, sTl + wT, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  if constexpr (NWG == 2) {   // warpgroup 0 adds warpgroup 1's sums
+    float* red = reinterpret_cast<float*>(tc_smem + (sKh - sdOh));
+    __syncthreads();   // the K tile is no longer read
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) red[i * 128 + t128] = acc[i];
+    }
+    __syncthreads();
+    if (wg == 1) return;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] += red[i * 128 + t128];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rok[r]) {
+      float* row = dq + qoff + (r0 + 8 * r) * ld;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(row + 8 * j + c0) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
   }
 }
 
-// Pass 2: dk, dv and the per-head bias gradient for 64 keys of one
+// Pass 2 (f32): dk, dv and the per-head bias gradient for 64 keys of one
 // (head, batch).  Reads the delta that pass 1 wrote.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ bias,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        float* __restrict__ dk, float* __restrict__ dv,
-                        float* __restrict__ dbias_h, int Tq, int Tk, int H,
-                        float scale) {
-  constexpr int NJ = D / kTy;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kB * (D + 1);
-  float* Ks = dOs + kB * (D + 1);
-  float* Vs = Ks + kB * (D + 1);
-  float* Ps = Vs + kB * (D + 1);
-  float* dSs = Ps + kB * kLdp;
-  float* Ls = dSs + kB * kLdp;
-  float* Ds = Ls + kB;
-  float* Bs = Ds + kB;
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128, 1)
+attn_bwd_dkv_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         float* __restrict__ dbias_h, int Tq, int Tk, int H,
+                         float scale) {
+  using L = Tf32Dkv<D, NWG>;
+  constexpr int NT = NWG * 128;
+  constexpr int kBQ = L::kBQ, kWQ = L::kWQ;
+  constexpr int NS = kWQ / 2;      // S^T and dP^T accumulator floats
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t sKh = smem_u32(tc_smem), sKl = sKh + L::kKeyBytes;
+  const uint32_t sVh = sKl + L::kKeyBytes, sVl = sVh + L::kKeyBytes;
+  const uint32_t sQh = sVl + L::kKeyBytes, sQl = sQh + L::kRowBytes;
+  const uint32_t sOh = sQl + L::kRowBytes, sOl = sOh + L::kRowBytes;
+  const uint32_t sQTh = sOl + L::kRowBytes, sQTl = sQTh + L::kRowBytes;
+  const uint32_t sOTh = sQTl + L::kRowBytes, sOTl = sOTh + L::kRowBytes;
+  const uint32_t sRQ = sOTl + L::kRowBytes, sRO = sRQ + L::kRawBytes;
+  const float* rawQ = reinterpret_cast<const float*>(tc_smem + (sRQ - sKh));
+  const float* rawO = reinterpret_cast<const float*>(tc_smem + (sRO - sKh));
+  float* Ls = reinterpret_cast<float*>(
+      tc_smem + 4 * L::kKeyBytes + 8 * L::kRowBytes
+      + 2 * L::kRawBytes);                                     // [kBQ]
+  float* Ds = Ls + kBQ;                                        // [kBQ]
+  float* rawL = Ds + kBQ;          // [kBQ] staged lse, then delta
+  float* rawD = rawL + kBQ;
 
   const int k0 = blockIdx.x * kB;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kn = min(kB, Tk - k0);
-  const int tx = threadIdx.x % kTy, ty = threadIdx.x / kTy;
+  const int wg = threadIdx.x / 128, t128 = threadIdx.x % 128;
+  const int warp = t128 / 32, lane = threadIdx.x % 32;
+  const int r0 = 16 * warp + lane / 4;   // accumulator rows (keys) r0, r0 + 8
+  const int c0 = 2 * (lane % 4);         // columns (q rows) c0, c0 + 1 of 8
   const long long ld = (long long)H * D;
   const long long koff = ((long long)b * Tk + k0) * ld + (long long)h * D;
   const long long qbase = (long long)b * Tq * ld + (long long)h * D;
   const long long rowb = ((long long)b * H + h) * Tq;
+  const float scale_log2 = scale * kLog2e;
+  // this warpgroup's rows of a query tile: its rows of the Q and dO tiles,
+  // its K steps of Q^T and dO^T
+  const uint32_t wQ = wg * kWQ * D * 4, wT = wg * (kWQ / 8) * 256;
 
-  stage<D>(Ks, k + koff, ld, kn);
-  stage<D>(Vs, v + koff, ld, kn);
-  for (int j = threadIdx.x; j < kB; j += kThreads)
-    Bs[j] = (j < kn && bias != nullptr) ? bias[(long long)b * Tk + k0 + j] : 0.f;
-
-  float dk_acc[4][NJ], dv_acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-  float db_acc = 0.f;   // threads 0..63: the bias gradient of key k0 + tid
-
-  for (int q0 = 0; q0 < Tq; q0 += kB) {
-    const int qn = min(kB, Tq - q0);
-    __syncthreads();   // previous tile consumed (and Ks/Vs/Bs staged)
-    stage<D>(Qs, q + qbase + q0 * ld, ld, qn);
-    stage<D>(dOs, dout + qbase + q0 * ld, ld, qn);
-    for (int r = threadIdx.x; r < kB; r += kThreads) {
-      Ls[r] = r < qn ? lse[rowb + q0 + r] : 0.f;
-      Ds[r] = r < qn ? delta[rowb + q0 + r] : 0.f;
+  // the copies of query tile `it` into the raw panels (kStage)
+  auto stage_rows = [&](int it) {
+    const int q0 = it * kBQ;
+    stage_raw<kBQ, D, NT>(sRQ, q + qbase + q0 * ld, ld, Tq - q0);
+    stage_raw<kBQ, D, NT>(sRO, dout + qbase + q0 * ld, ld, Tq - q0);
+    for (int i = threadIdx.x; i < 2 * kBQ; i += NT) {
+      const int r = i % kBQ;
+      const float* src = i < kBQ ? lse : delta;
+      const bool ok = q0 + r < Tq;
+      cp_async4(smem_u32((i < kBQ ? rawL : rawD) + r),
+                ok ? src + rowb + q0 + r : src, ok);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  if constexpr (L::kStage) stage_rows(0);   // in flight meanwhile
+  split_kmajor<kB, D, NT>(sKh, sKl, k + koff, ld, kn);
+  split_kmajor<kB, D, NT>(sVh, sVl, v + koff, ld, kn);
 
-    float s[4][4], dp[4][4];
-    scores<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+  float bk[2];   // this thread's keys' bias, log2 units
+  bool kok[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + kTy * i;
+  for (int r = 0; r < 2; ++r) {
+    kok[r] = r0 + 8 * r < kn;
+    bk[r] = (bias != nullptr && kok[r])
+        ? bias[(long long)b * Tk + k0 + r0 + 8 * r] * kLog2e : 0.f;
+  }
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + kTy * j;
-        float p = 0.f, ds = 0.f;
-        if (r < qn && c < kn) {
-          p = expf(s[i][j] * scale + Bs[c] - Ls[r]);
-          ds = p * (dp[i][j] - Ds[r]);
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float db[2] = {0.f, 0.f};   // this thread's part of the keys' bias gradient
+
+  const int ntiles = (Tq + kBQ - 1) / kBQ;
+  for (int it = 0; it < ntiles; ++it) {
+    const int q0 = it * kBQ;
+    if constexpr (L::kStage) {
+      cp_async_wait<0>();
+      __syncthreads();   // the raw tile is in; the last products done
+      {  // Q and dO into the natural, then the transposed tiles
+        using N = Kmajor<kBQ, D, NT>;
+        using T = Transposed<kBQ, D, NT>;
+        float4 xq[N::kN], xo[N::kN];
+        load_kmajor<kBQ, D, NT, false>(xq, rawQ, raw_ld<D>(), kBQ);
+        load_kmajor<kBQ, D, NT, false>(xo, rawO, raw_ld<D>(), kBQ);
+        store_kmajor<kBQ, D, NT>(sQh, sQl, xq);
+        store_kmajor<kBQ, D, NT>(sOh, sOl, xo);
+        float4 tq[T::kN][4], to[T::kN][4];
+        load_transposed<kBQ, D, NT, false>(tq, rawQ, raw_ld<D>(), kBQ);
+        load_transposed<kBQ, D, NT, false>(to, rawO, raw_ld<D>(), kBQ);
+        store_transposed<kBQ, D, NT>(sQTh, sQTl, tq);
+        store_transposed<kBQ, D, NT>(sOTh, sOTl, to);
+      }
+      for (int i = threadIdx.x; i < kBQ; i += NT) {
+        Ls[i] = rawL[i] * kLog2e;
+        Ds[i] = rawD[i];
+      }
+      fence_async_smem();
+      __syncthreads();   // the tiles are in; the raw panels are free
+      if (it + 1 < ntiles) stage_rows(it + 1);
+    } else {
+      const float* qt = q + qbase + q0 * ld;
+      const float* ot = dout + qbase + q0 * ld;
+      __syncthreads();   // every warp's products of the last tile are done
+      {  // Q and dO: both panels' loads, then their stores; then the same
+         // rows again (from L1) into the transposed tiles
+        using N = Kmajor<kBQ, D, NT>;
+        using T = Transposed<kBQ, D, NT>;
+        float4 xq[N::kN], xo[N::kN];
+        load_kmajor<kBQ, D, NT>(xq, qt, ld, Tq - q0);
+        load_kmajor<kBQ, D, NT>(xo, ot, ld, Tq - q0);
+        store_kmajor<kBQ, D, NT>(sQh, sQl, xq);
+        store_kmajor<kBQ, D, NT>(sOh, sOl, xo);
+        float4 tq[T::kN][4], to[T::kN][4];
+        load_transposed<kBQ, D, NT>(tq, qt, ld, Tq - q0);
+        load_transposed<kBQ, D, NT>(to, ot, ld, Tq - q0);
+        store_transposed<kBQ, D, NT>(sQTh, sQTl, tq);
+        store_transposed<kBQ, D, NT>(sOTh, sOTl, to);
+      }
+      for (int i = threadIdx.x; i < kBQ; i += NT) {
+        const bool ok = q0 + i < Tq;
+        Ls[i] = ok ? lse[rowb + q0 + i] * kLog2e : 0.f;
+        Ds[i] = ok ? delta[rowb + q0 + i] : 0.f;
+      }
+      fence_async_smem();
+      __syncthreads();
+    }
+
+    float s[NS], dp[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+    mma3_ss<D>(s, sKh, sKl, sQh + wQ, sQl + wQ, 0);    // S^T = K Q^T
+    mma3_ss<D>(dp, sVh, sVl, sOh + wQ, sOl + wQ, 0);   // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // s <- p^T, dp <- ds^T * scale; the bias gradient takes ds^T unscaled
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = wg * kWQ + 8 * j + c0 + e;
+        const bool ok = q0 + col < Tq;
+        const float lq = Ls[col];
+        const float dlt = Ds[col];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r + e;
+          const float p = (ok && kok[r])
+              ? ex2(fmaf(s[i], scale_log2, bk[r] - lq)) : 0.f;
+          const float ds = p * (dp[i] - dlt);
+          db[r] += ds;
+          s[i] = p;
+          dp[i] = ds * scale;
         }
-        Ps[r * kLdp + c] = p;
-        dSs[r * kLdp + c] = ds;
       }
     }
-    __syncthreads();
-
-    // this thread's keys are ty + 16i, its columns tx + 16j
-    for (int r = 0; r < qn; ++r) {
-      float pv[4], dsv[4], ov[NJ], qv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[r * kLdp + ty + kTy * i];
-        dsv[i] = dSs[r * kLdp + ty + kTy * i];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        ov[j] = dOs[r * (D + 1) + tx + kTy * j];
-        qv[j] = Qs[r * (D + 1) + tx + kTy * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          dv_acc[i][j] = fmaf(pv[i], ov[j], dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(dsv[i], qv[j], dk_acc[i][j]);
-        }
-    }
-    if (dbias_h != nullptr && threadIdx.x < kB) {
-      float col = 0.f;
-      for (int r = 0; r < qn; ++r) col += dSs[r * kLdp + threadIdx.x];
-      db_acc += col;
-    }
+    uint32_t ph[NS / 4][4], pl[NS / 4][4], dh[NS / 4][4], dlo[NS / 4][4];
+    acc_to_tf32(s, ph, pl);
+    acc_to_tf32(dp, dh, dlo);
+    wgmma_fence();
+    mma3_rs<kBQ>(dv_acc, ph, pl, sOTh + wT, sOTl + wT, 1);    // dV += P^T dO
+    mma3_rs<kBQ>(dk_acc, dh, dlo, sQTh + wT, sQTl + wT, 1);   // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
   }
 
+  if constexpr (NWG == 2) {   // warpgroup 0 adds warpgroup 1's sums
+    float* red = reinterpret_cast<float*>(tc_smem + (sQh - sKh));
+    __syncthreads();   // the query tiles are no longer read
+    if (wg == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = ty + kTy * i;
-    if (c < kn) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        dk[koff + c * ld + tx + kTy * j] = dk_acc[i][j] * scale;
-        dv[koff + c * ld + tx + kTy * j] = dv_acc[i][j];
+      for (int i = 0; i < D / 2; ++i) {
+        red[i * 128 + t128] = dk_acc[i];
+        red[(D / 2 + i) * 128 + t128] = dv_acc[i];
       }
+      red[D * 128 + t128] = db[0];
+      red[(D + 1) * 128 + t128] = db[1];
+    }
+    __syncthreads();
+    if (wg == 1) return;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      dk_acc[i] += red[i * 128 + t128];
+      dv_acc[i] += red[(D / 2 + i) * 128 + t128];
+    }
+    db[0] += red[D * 128 + t128];
+    db[1] += red[(D + 1) * 128 + t128];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    db[r] += __shfl_xor_sync(0xffffffffu, db[r], 1);
+    db[r] += __shfl_xor_sync(0xffffffffu, db[r], 2);
+    const int key = r0 + 8 * r;
+    if (kok[r]) {
+      float* dkr = dk + koff + key * ld;
+      float* dvr = dv + koff + key * ld;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(dkr + 8 * j + c0) =
+            make_float2(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
+        *reinterpret_cast<float2*>(dvr + 8 * j + c0) =
+            make_float2(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      }
+      if (dbias_h != nullptr && lane % 4 == 0)
+        dbias_h[((long long)b * H + h) * Tk + k0 + key] = db[r];
     }
   }
-  if (dbias_h != nullptr && threadIdx.x < kn)
-    dbias_h[((long long)b * H + h) * Tk + k0 + threadIdx.x] = db_acc;
 }
 
+// Two warpgroups a CTA in both passes at D = 64 and 96.  At D = 32 one,
+// since two 128-thread CTAs then fit on an SM and run out of step, which
+// measured faster; at D = 128 one, whose tiles are already narrow (16
+// query rows, 32 keys).
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, const void* bias,
-                       const void* lse, void* dq, void* dk, void* dv,
-                       void* dbias_h, void* delta, int B, int Tq, int Tk,
-                       int H, float scale, cudaStream_t stream) {
+constexpr int bwd_tf32_nwg() { return D == 64 || D == 96 ? 2 : 1; }
+
+template <int D>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const void* bias,
+                        const void* lse, void* dq, void* dk, void* dv,
+                        void* dbias_h, void* delta, int B, int Tq, int Tk,
+                        int H, float scale, cudaStream_t stream) {
+  constexpr int NWG = bwd_tf32_nwg<D>();
   static unsigned long long configured_dq = 0, configured_dkv = 0;
-  auto kdq = attn_bwd_dq_f32_kernel<D>;
-  auto kdkv = attn_bwd_dkv_f32_kernel<D>;
-  cudaError_t err = opt_in(kdq, dq_f32_smem_bytes<D>(), &configured_dq);
+  constexpr int smem_dq = Tf32Dq<D, NWG>::kSmem;
+  constexpr int smem_dkv = Tf32Dkv<D, NWG>::kSmem;
+  auto kdq = attn_bwd_dq_tf32_kernel<D, NWG>;
+  auto kdkv = attn_bwd_dkv_tf32_kernel<D, NWG>;
+  cudaError_t err = opt_in(kdq, smem_dq, &configured_dq);
   if (err != cudaSuccess) return err;
-  err = opt_in(kdkv, dkv_f32_smem_bytes<D>(), &configured_dkv);
+  err = opt_in(kdkv, smem_dkv, &configured_dkv);
   if (err != cudaSuccess) return err;
   dim3 gq((Tq + kB - 1) / kB, H, B);
-  kdq<<<gq, kThreads, dq_f32_smem_bytes<D>(), stream>>>(
+  kdq<<<gq, NWG * 128, smem_dq, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(o),
       static_cast<const float*>(dout), static_cast<const float*>(bias),
@@ -402,7 +625,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 gk((Tk + kB - 1) / kB, H, B);
-  kdkv<<<gk, kThreads, dkv_f32_smem_bytes<D>(), stream>>>(
+  kdkv<<<gk, NWG * 128, smem_dkv, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(bias), static_cast<const float*>(lse),
@@ -776,10 +999,10 @@ cudaError_t dispatch(int D, int dtype, const void* q, const void* k,
                      int Tk, int H, float scale, cudaStream_t s) {
   if (dtype == 0) {
     switch (D) {
-      case 32: return launch_f32<32>(PTTS_BWD_ARGS);
-      case 64: return launch_f32<64>(PTTS_BWD_ARGS);
-      case 96: return launch_f32<96>(PTTS_BWD_ARGS);
-      case 128: return launch_f32<128>(PTTS_BWD_ARGS);
+      case 32: return launch_tf32<32>(PTTS_BWD_ARGS);
+      case 64: return launch_tf32<64>(PTTS_BWD_ARGS);
+      case 96: return launch_tf32<96>(PTTS_BWD_ARGS);
+      case 128: return launch_tf32<128>(PTTS_BWD_ARGS);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -800,9 +1023,8 @@ cudaError_t dispatch(int D, int dtype, const void* q, const void* k,
 }  // namespace
 
 // Two launches on `stream`: the dq pass (which also writes delta [B,H,Tq]
-// f32 scratch) and then the dk/dv pass.  dtype: 0 = float32 (CUDA cores),
-// 1 = bfloat16 (tensor cores; every pointer 16-byte aligned, which the
-// wrapper checks).  Every tensor is contiguous: q, o, dout, dq [B,Tq,H,D];
+// f32 scratch) and then the dk/dv pass.  dtype: 0 = float32 (3 x TF32),
+// 1 = bfloat16; every pointer 16-byte aligned, which the wrapper checks.  Every tensor is contiguous: q, o, dout, dq [B,Tq,H,D];
 // k, v, dk, dv [B,Tk,H,D]; lse and delta [B,H,Tq] f32; bias [B,Tk] f32 or
 // null; dbias_h [B,H,Tk] f32 out, or null to skip the bias gradient.
 // Returns the first launch error, else cudaGetLastError() after the second

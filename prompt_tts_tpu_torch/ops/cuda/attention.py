@@ -3,10 +3,12 @@
 Port of the TPU kernel ``prompt_tts_tpu/ops/pallas/attention.py:
 flash_attention``: q ``[B,Tq,H,D]``, k/v ``[B,Tk,H,D]`` (f32 or bf16, head
 dim 32/64/96/128), an optional key-only bias ``[B,1,1,Tk]``; f32 scores and
-softmax statistics; output at q's dtype in ``[B,Tq,H,D]``.  The dtype picks
-the kernel: bf16 runs on the tensor cores (``wgmma``, the TPU kernel's
-rounding of p to bf16 for PV: :func:`~prompt_tts_tpu_torch.ops.attention.
-flash_attention_plain` computes the same), f32 on the CUDA cores.
+softmax statistics; output at q's dtype in ``[B,Tq,H,D]``.  Both dtypes run
+on the tensor cores (``wgmma``) and the dtype picks the kernel: bf16 rounds
+p to bf16 for PV as the TPU kernel does
+(:func:`~prompt_tts_tpu_torch.ops.attention.flash_attention_plain` computes
+the same); f32 runs every product as 3 x TF32 (each operand split into two
+TF32 parts, three products), which keeps f32 accuracy.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version (:func:`prompt_tts_tpu_torch.ops.attention.attention_plain`).
@@ -27,7 +29,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def check_copy_alignment(what: str, **tensors) -> None:
     """Raise unless every row of each ``[B,T,H,D]`` tensor starts on 16
-    bytes: the bf16 kernels copy rows in 16-byte pieces (``cp.async``)."""
+    bytes: the kernels copy rows in 16-byte pieces (bf16 by ``cp.async``,
+    f32 by 16-byte loads before the TF32 split)."""
     for name, t in tensors.items():
         size = t.element_size()
         if t.data_ptr() % 16 or any(s * size % 16 for s in t.stride()[:3]):
@@ -76,8 +79,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
-    if q.dtype == torch.bfloat16:
-        check_copy_alignment("flash_attention", q=q, k=k, v=v)
+    check_copy_alignment("flash_attention", q=q, k=k, v=v)
     key_bias = None
     if bias is not None:
         if bias.device != q.device:

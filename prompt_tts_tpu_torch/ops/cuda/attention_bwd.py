@@ -8,9 +8,10 @@ None and the forward kernel's f32 row log-sum-exp ``[B,H,Tq]``, it returns
 dq, dk, dv at the input dtype and, when asked, the real bias gradient
 ``[B,1,1,Tk]`` (ds summed over heads and query rows) at the bias's dtype.
 
-The dtype picks the kernel: bf16 runs on the tensor cores (``wgmma``; p
-and ds*scale rounded to bf16 before their products, as the TPU kernel and
-the plain version on bf16 tensors do), f32 on the CUDA cores.  A CUDA
+Both dtypes run on the tensor cores (``wgmma``) and the dtype picks the
+kernel: bf16 rounds p and ds*scale to bf16 before their products, as the
+TPU kernel and the plain version on bf16 tensors do; f32 runs every
+product as 3 x TF32, at f32 accuracy.  A CUDA
 tensor launches the kernel (two launches: the dq pass, then the dk/dv
 pass) or raises; a CPU tensor runs the plain version
 (:func:`prompt_tts_tpu_torch.ops.attention.attention_bwd_plain`), which
@@ -81,8 +82,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("attention_bwd: q, k, v, o and lse must be "
                          "contiguous")
     do = do.contiguous()
-    if q.dtype == torch.bfloat16:
-        check_copy_alignment("attention_bwd", q=q, k=k, v=v, o=o, do=do)
+    check_copy_alignment("attention_bwd", q=q, k=k, v=v, o=o, do=do)
     key_bias = None
     if bias is not None:
         if bias.device != q.device:

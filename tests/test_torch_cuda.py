@@ -214,8 +214,8 @@ def test_attention_wrapper_counts_and_checks(dev):
 
 
 def _misaligned(t):
-    """A contiguous copy of ``t`` whose data starts 2 bytes past a 16-byte
-    boundary: the bf16 kernels' 16-byte copies cannot take it."""
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary: the kernels' 16-byte copies cannot take it."""
     buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
     start = (-buf.data_ptr() // t.element_size()) % 8 + 1
     out = buf[start:start + t.numel()].view(t.shape)
@@ -225,8 +225,8 @@ def _misaligned(t):
 
 
 def test_attention_dtype_picks_the_kernel(dev):
-    """bf16 runs the tensor-core kernels, f32 the CUDA-core ones, forward and
-    backward, as the profiler names them: no option chooses."""
+    """bf16 runs the bf16 tensor-core kernels, f32 the 3 x TF32 ones,
+    forward and backward, as the profiler names them: no option chooses."""
     from torch.profiler import ProfilerActivity, profile
     cases = {dtype: _bwd_case(dev, 2, 70, 45, 2, 64, dtype, True)
              for dtype in (torch.float32, torch.bfloat16)}
@@ -241,13 +241,13 @@ def test_attention_dtype_picks_the_kernel(dev):
         names[dtype] = " ".join(e.name for e in prof.events()
                                 if "attn_" in e.name)
     assert all(n in names[torch.float32] for n in (
-        "attn_fwd_f32_kernel", "attn_bwd_dq_f32_kernel",
-        "attn_bwd_dkv_f32_kernel")), names
+        "attn_fwd_tf32_kernel", "attn_bwd_dq_tf32_kernel",
+        "attn_bwd_dkv_tf32_kernel")), names
     assert all(n in names[torch.bfloat16] for n in (
         "attn_fwd_tc_kernel", "attn_bwd_dq_tc_kernel",
         "attn_bwd_dkv_tc_kernel")), names
     assert "_tc_" not in names[torch.float32], names
-    assert "_f32_" not in names[torch.bfloat16], names
+    assert "_tf32_" not in names[torch.bfloat16], names
 
 
 def test_attention_kernel_on_every_card(dev):
@@ -694,6 +694,87 @@ def test_attention_bwd_wrapper_counts_and_checks(dev):
     with pytest.raises(ValueError, match="without a bias"):
         attention_bwd(q, k, v, o, do, None, lse, need_dbias=True)
     assert attention_bwd.launches == before + 2 * LAUNCHES_PER_CALL
+
+
+# f32 (3 x TF32) shapes: ragged tails, a Tk that is no multiple of 8 (the
+# transposed tiles' key order within 8-key groups), and at B=8, H=8 a grid
+# on which D = 64 and 96 take two warpgroups a CTA.
+TF32_SHAPES = ((2, 63, 65), (2, 130, 7), (2, 113, 550), (2, 9, 13),
+               (8, 300, 300))
+
+
+def _tf32_bias(dev, B, Tk):
+    """Batch row 0 keeps its first (Tk + 1) // 2 keys, the last row none (an
+    empty text), the rows between all of theirs."""
+    bias = torch.zeros(B, 1, 1, Tk, device=dev)
+    bias[0, ..., (Tk + 1) // 2:] = -1e4
+    bias[-1] = -1e4
+    return bias
+
+
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
+def test_attention_tf32_kernels_match_plain(dev, D):
+    """The f32 forward (with and without the lse) and backward, 3 x TF32 on
+    the tensor cores, against the plain versions: the output the same bits
+    with and without the lse, the lse within 1e-5 of the f64 log-sum-exp,
+    the rows with keys ATTN_TOL_F32 and BWD_TOL, the all-masked row
+    BWD_TOL_ALL_MASKED."""
+    for B, Tq, Tk in TF32_SHAPES:
+        q, k, v, _ = _qkv(dev, B, Tq, Tk, 3 if B == 2 else 8, D,
+                          torch.float32, False)
+        bias = _tf32_bias(dev, B, Tk)
+        o, lse = flash_attention(q, k, v, bias, return_lse=True)
+        assert torch.equal(o, flash_attention(q, k, v, bias))
+        ref = attention_plain(q, k, v, bias)
+        s64 = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) \
+            / D ** 0.5 + bias.double()
+        lse_err = (lse.double() - torch.logsumexp(s64, dim=-1)).abs()
+        assert lse_err[:-1].max() <= 1e-5, (B, Tq, Tk, lse_err.max())
+        torch.testing.assert_close(o[:-1], ref[:-1], atol=ATTN_TOL_F32,
+                                   rtol=0)
+        torch.testing.assert_close(o[-1:], ref[-1:],
+                                   atol=BWD_TOL_ALL_MASKED, rtol=0)
+        do = torch.randn(q.shape, device=dev)
+        got = attention_bwd(q, k, v, o, do, bias, lse, need_dbias=True)
+        ref_g = attention_bwd_plain(q, k, v, o, do, bias)
+        for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref_g):
+            assert torch.isfinite(a).all(), name
+            top = b[:-1].abs().max().item()
+            torch.testing.assert_close(a[:-1], b[:-1],
+                                       atol=BWD_TOL * (1.0 + top), rtol=0,
+                                       msg=f"{name} B={B} {Tq}/{Tk}")
+            torch.testing.assert_close(
+                a[-1:], b[-1:], rtol=0, msg=f"{name} all masked",
+                atol=BWD_TOL_ALL_MASKED * (1.0 + b[-1:].abs().max().item()))
+
+
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
+def test_attention_bwd_tf32_is_deterministic(dev, D):
+    """The f32 backward's two launches, no atomics, and with two
+    warpgroups a fixed order for their partial sums: the same bits every
+    run."""
+    q, k, v, bias, o, lse, do = _bwd_case(dev, 8, 300, 300, 8, D,
+                                          torch.float32, True)
+    a = attention_bwd(q, k, v, o, do, bias, lse, need_dbias=True)
+    b = attention_bwd(q, k, v, o, do, bias, lse, need_dbias=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_attention_tf32_refuses_misaligned_rows(dev):
+    """The f32 kernels copy rows in 16-byte pieces too: a view whose data
+    starts one float past a 16-byte boundary raises, forward and
+    backward, and launches nothing."""
+    q, k, v, bias, o, lse, do = _bwd_case(dev, 2, 16, 24, 2, 32,
+                                          torch.float32, True)
+    before = (flash_attention.launches, attention_bwd.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(_misaligned(q), k, v, bias)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, k, _misaligned(v), bias, return_lse=True)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention_bwd(q, k, v, o, _misaligned(do), bias, lse)
+    assert (flash_attention.launches, attention_bwd.launches) == before
 
 
 def test_train_step_on_card_matches_cpu(dev):
