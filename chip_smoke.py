@@ -564,6 +564,50 @@ def _bwd_tol(dtype, all_masked=False):
     return tol
 
 
+def _hold_call(q, k, v, bias, o, lse=None, do=None, grads=None):
+    """One attention call's kernel outputs against the plain versions on
+    the same inputs: ``o`` by ``_fwd_check``, ``lse`` against the f64
+    log-sum-exp (ATTN_TOL_F32), the backward's ``grads`` for ``do`` by
+    ``_bwd_errors``.  The batch rows whose keys are all masked (the masked
+    path's padded text keeps Tk >> i keys: none from i = 10 at Tk = 550)
+    are held apart at ATTN_TOL_ALL_MASKED and BWD_TOL_ALL_MASKED.  Returns
+    the errors by row set and whether every one holds."""
+    import torch
+    B, D = q.shape[0], q.shape[-1]
+    dead = (torch.zeros(B, dtype=torch.bool, device=q.device)
+            if bias is None else (bias.reshape(B, -1) < 0).all(1))
+    res, ok = {}, True
+    for name, rows in (("rows_with_keys", ~dead), ("all_masked_rows", dead)):
+        idx = torch.nonzero(rows).flatten()
+        if not len(idx):
+            continue
+        am = name == "all_masked_rows"
+        sq, sk, sv, sb, so, slse, sdo = (
+            None if t is None else t.index_select(0, idx)
+            for t in (q, k, v, bias, o, lse, do))
+        err, fro, fok = _fwd_check(so, sq, sk, sv, sb, am)
+        r = {"rows": len(idx), "fwd": err, "fwd_fro": fro}
+        ok = ok and fok
+        if slse is not None:
+            s = torch.einsum("bqhd,bkhd->bhqk", sq.double(),
+                             sk.double()) / D ** 0.5
+            if sb is not None:
+                s = s + sb.double()
+            r["lse"] = (slse.double() - torch.logsumexp(s, -1)).abs().max(
+            ).item()
+            del s
+            ok = ok and r["lse"] <= (ATTN_TOL_ALL_MASKED if am
+                                     else ATTN_TOL_F32)
+        if grads is not None:
+            sg = [None if t is None else t.index_select(0, idx)
+                  for t in grads]
+            r["bwd"], r["bwd_fro"], bok = _bwd_errors(
+                sg, (sq, sk, sv, so, sdo, sb), am)
+            ok = ok and bok
+        res[name] = r
+    return res, ok
+
+
 def phase_attention_fwd(smi):
     """The forward kernel against its plain version at B=4, f32 and bf16,
     at the paths' shapes (timed), at ragged shapes and every head dim, on
@@ -803,51 +847,57 @@ def phase_attention_bwd(smi, train_batch):
             err_all = max(err_all, *errs.values())
             del q, k, v, do, o, lse, got
 
-    B = train_batch
-    sums = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).split(".")[-1]
-        step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                "fwd_lse_ms": 0.0, "flop": 0, "bytes": 0, "exps": 0}
-        fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0,
-               "bytes": 0, "exps": 0}
-        for label, Tq, Tk, H, D, masked, n in attn_cases():
-            t = _bwd_case_times(g, B, Tq, Tk, H, D, masked, dtype)
-            emit({"phase": "kernel_time", "kernel": "attention_bwd",
-                  "case": label, "dtype": dname, "B": B, "calls": n,
-                  **t["bwd"], "card": smi})
-            if not t["bwd"]["bit_identical"]:
-                raise AssertionError(f"attention_bwd {label} {dname}: two "
-                                     f"runs differ")
-            emit({"phase": "kernel_time", "kernel": "attention_fwd_lse",
-                  "case": label, "dtype": dname, "B": B, "calls": n,
-                  **t["fwd"], "card": smi})
-            for acc, key in ((step, "bwd"), (fwd, "fwd")):
-                for k in acc:
-                    acc[k] += n * t[key][k]
-        exps, fwd_exps = step.pop("exps"), fwd.pop("exps")
-        b = attn_bound(step.pop("flop"), step.pop("bytes"), dname)
-        fb = attn_bound(fwd.pop("flop"), fwd.pop("bytes"), dname)
-        for d in (b, fb):
-            del d["flop"], d["bytes"]
-        unit = f"one train step's {ATTN_CALLS} calls, {dname}, B={B}"
-        sums[dname] = (
-            {**step, **b, "exp_ms": exp_floor(exps), "unit": unit},
-            {**fwd, **fb, "exp_ms": exp_floor(fwd_exps),
-             "unit": unit + ", with the lse"})
+    sums = {str(dtype).split(".")[-1]: _attn_train_sums(smi, g, train_batch,
+                                                          dtype)
+            for dtype in (torch.bfloat16, torch.float32)}
     step, fwd = sums["bfloat16"]
     step["f32_train_shapes"], fwd["f32_train_shapes"] = sums["float32"]
     return {"max_abs_err": err_all, **step}, fwd
 
 
+def _attn_train_sums(smi, g, B, dtype):
+    """Kernel #1 with the lse and kernel #2 over one train step's
+    ``ATTN_CALLS`` calls at batch ``B`` in ``dtype``, each call checked and
+    timed by ``_bwd_case_times`` and emitted; returns the backward's and
+    the forward's sums with their bounds and exp floors."""
+    dname = str(dtype).split(".")[-1]
+    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "fwd_lse_ms": 0.0, "flop": 0, "bytes": 0, "exps": 0}
+    fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0,
+           "bytes": 0, "exps": 0}
+    for label, Tq, Tk, H, D, masked, n in attn_cases():
+        t = _bwd_case_times(g, B, Tq, Tk, H, D, masked, dtype)
+        emit({"phase": "kernel_time", "kernel": "attention_bwd",
+              "case": label, "dtype": dname, "B": B, "calls": n,
+              **t["bwd"], "card": smi})
+        emit({"phase": "kernel_time", "kernel": "attention_fwd_lse",
+              "case": label, "dtype": dname, "B": B, "calls": n,
+              **t["fwd"], "card": smi})
+        for acc, key in ((step, "bwd"), (fwd, "fwd")):
+            for k in acc:
+                acc[k] += n * t[key][k]
+    exps, fwd_exps = step.pop("exps"), fwd.pop("exps")
+    b = attn_bound(step.pop("flop"), step.pop("bytes"), dname)
+    fb = attn_bound(fwd.pop("flop"), fwd.pop("bytes"), dname)
+    for d in (b, fb):
+        del d["flop"], d["bytes"]
+    unit = f"one train step's {ATTN_CALLS} calls, {dname}, B={B}"
+    return ({**step, **b, "exp_ms": exp_floor(exps), "unit": unit},
+            {**fwd, **fb, "exp_ms": exp_floor(fwd_exps),
+             "unit": unit + ", with the lse"})
+
+
 def _bwd_case_times(g, B, Tq, Tk, H, D, masked, dtype=None):
-    """One attention call at [B, Tq/Tk, H, D] in ``dtype`` (bf16 if None),
+    """One attention call at [B, Tq/Tk, H, D] in ``dtype`` (bf16 if None):
+    the forward kernel's o and lse and the backward kernel's gradients
+    held against the plain versions on the same inputs (``_hold_call``),
+    two backward runs to the same bits (raises if either fails); then
     timed by CUDA events: the backward kernel, its plain version and the
-    library's backward (SDPA through autograd), whether two backward runs
-    give the same bits; the forward kernel with the lse, its plain version
-    (bf16: ``flash_attention_plain``, f32: ``attention_plain``) and SDPA's
-    forward; each with its flop, bytes and exps and its bounds
-    (``attn_bound``).  ``fwd_lse_ms`` rides with the backward."""
+    library's backward (SDPA through autograd); the forward kernel with
+    the lse, its plain version (bf16: ``flash_attention_plain``, f32:
+    ``attention_plain``) and SDPA's forward; each with its flop, bytes and
+    exps and its bounds (``attn_bound``).  ``fwd_lse_ms`` rides with the
+    backward."""
     import torch
     from prompt_tts_tpu_torch.ops.attention import (
         attention_bwd_plain, attention_plain, flash_attention_plain,
@@ -862,18 +912,23 @@ def _bwd_case_times(g, B, Tq, Tk, H, D, masked, dtype=None):
     q, k, v, bias = attn_inputs(g, B, Tq, Tk, H, D, masked, dtype)
     do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
     o, lse = flash_attention(q, k, v, bias, return_lse=True)
+    # two launches a call and no atomics: the same bits on every run
+    once, again = (attention_bwd(q, k, v, o, do, bias, lse,
+                                 need_dbias=masked) for _ in range(2))
+    same = all(torch.equal(a, b) for a, b in zip(once, again)
+               if a is not None)
+    check, ok = _hold_call(q, k, v, bias, o, lse, do, once)
+    del once, again
+    if not (ok and same):
+        raise AssertionError(f"attention {dname} B={B} Tq={Tq} Tk={Tk} "
+                             f"H={H} D={D}: bit_identical={same}, against "
+                             f"the plain versions {check}")
     fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, bias, return_lse=True),
                      10)
     fwd_plain_ms = cuda_ms(lambda: fwd_plain(q, k, v, bias), 3)
     fwd_lib_ms = cuda_ms(lambda: sdpa(q, k, v, bias), 10)
     ms = cuda_ms(lambda: attention_bwd(q, k, v, o, do, bias, lse,
                                        need_dbias=masked), 10)
-    # two launches a call and no atomics: the same bits on every run
-    once, again = (attention_bwd(q, k, v, o, do, bias, lse,
-                                 need_dbias=masked) for _ in range(2))
-    same = all(torch.equal(a, b) for a, b in zip(once, again)
-               if a is not None)
-    del once, again
     plain_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, o, do, bias), 3)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = sdpa(*leaves, bias)
@@ -898,11 +953,13 @@ def _bwd_case_times(g, B, Tq, Tk, H, D, masked, dtype=None):
     return {"bwd": {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                     "fwd_lse_ms": fwd_ms, **attn_bound(flop, nbytes, dname),
                     "exps": exps, "exp_ms": exp_floor(exps),
-                    "bit_identical": same},
+                    "bit_identical": same, "check": check,
+                    "tol": _bwd_tol(dtype)},
             "fwd": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                     "library_ms": fwd_lib_ms,
                     **attn_bound(fwd_flop, fwd_bytes, dname),
-                    "exps": fwd_exps, "exp_ms": exp_floor(fwd_exps)}}
+                    "exps": fwd_exps, "exp_ms": exp_floor(fwd_exps),
+                    "tol": _fwd_tol(dtype)}}
 
 
 def prompt_train_attn_cases():
@@ -960,8 +1017,6 @@ def phase_prompt_attention_bwd(smi, B):
         emit({"phase": "kernel_time", "kernel": "attention_bwd",
               "case": "prompt train: " + label, "dtype": "bfloat16",
               "B": B, "calls": n, **t, "card": smi})
-        if not t["bit_identical"]:
-            raise AssertionError(f"attention_bwd {label}: two runs differ")
         group = "prompt_encoder" if label.startswith("prompt") else "unet_cross"
         acc = sums.setdefault(group, {"ms": 0.0, "plain_ms": 0.0,
                                       "library_ms": 0.0, "flop": 0,
@@ -3216,6 +3271,43 @@ def _last_json(fn, argv):
     return ret, json.loads(lines[-1]), lines[:-1]
 
 
+def _step_walls(step, batch, gen, n):
+    """``n`` synchronised calls of the train step ``step``: their walls,
+    the peak memory (GiB) over them and the last call's output."""
+    import torch
+    walls, peak, out = [], 0.0, None
+    for _ in range(n):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = step(batch, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+    return walls, peak, out
+
+
+def _evaluate_batch_walls(model, sched, batch, n=3):
+    """One ``cli.evaluate`` batch (the eval loss and the 5-point grid: 6
+    f32 forwards of ``model``, TF32 off) ``n`` times, in process: the walls
+    after the first, which warms."""
+    import torch
+    from prompt_tts_tpu_torch.cli.evaluate import batch_losses
+    from prompt_tts_tpu_torch.pipeline import full_f32
+    from prompt_tts_tpu_torch.train.step import eval_generator
+    walls = []
+    with full_f32():
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, at = batch_losses(model, sched, batch,
+                                    [50, 250, 500, 750, 950],
+                                    eval_generator(torch.device("cuda"), 0,
+                                                   0))
+            float(loss), [float(a) for a in at]
+            walls.append(time.perf_counter() - t0)
+    return walls[1:]
+
+
 def phase_remat_train(smi, tar, batch):
     """The flagship train step at ``ModelConfig()``, bf16 over f32, batch
     ``batch`` of the encode slice's tar, the text encoder's dropout on:
@@ -3284,28 +3376,18 @@ def phase_remat_train(smi, tar, batch):
     torch.cuda.synchronize()
     walls, peaks = {False: [], True: []}, {False: 0.0, True: 0.0}
     for r in (False, True, True, False):
-        for _ in range(2):
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            steps[r](dev_batch, gen)
-            torch.cuda.synchronize()
-            walls[r].append(time.perf_counter() - t0)
-            peaks[r] = max(peaks[r],
-                           torch.cuda.max_memory_allocated() / 2**30)
+        w, peak, _ = _step_walls(steps[r], dev_batch, gen, 2)
+        walls[r] += w
+        peaks[r] = max(peaks[r], peak)
     # cli.train's default dtype: the same step in f32, warm
     set_compute_dtype_(model, None)
     f32_step = make_train_step(state, sched)
     f32_step(dev_batch, gen)
     torch.cuda.synchronize()
-    f32_walls, f32_peak, f32_steps = [], 0.0, 3
+    f32_steps = 3
     zero_counts()
-    for _ in range(f32_steps):
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        f32_loss = f32_step(dev_batch, gen)
-        torch.cuda.synchronize()
-        f32_walls.append(time.perf_counter() - t0)
-        f32_peak = max(f32_peak, torch.cuda.max_memory_allocated() / 2**30)
+    f32_walls, f32_peak, f32_loss = _step_walls(f32_step, dev_batch, gen,
+                                                f32_steps)
     launches["f32"] = counts()
     want = want_counts(attention_fwd=ATTN_CALLS,
                        attention_bwd=LAUNCHES_PER_CALL * ATTN_CALLS)
@@ -3457,7 +3539,6 @@ def phase_evaluate(smi, tar, ckpt, prompt_ckpt, prompt_cfg, batch):
     from prompt_tts_tpu_torch.models.layers import cast_compute_
     from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
     from prompt_tts_tpu_torch.pipeline import full_f32
-    from prompt_tts_tpu_torch.train.step import eval_generator
     base = ["--data_file", tar, "--max_batches", "2", "--batch_size",
             str(batch), "--device", "cuda"]
     runs = {"flagship": base + ["--ckpt_dir", ckpt],
@@ -3508,17 +3589,7 @@ def phase_evaluate(smi, tar, ckpt, prompt_ckpt, prompt_cfg, batch):
     host = next(CodeDataset(tar).batches(batch))
     dev_batch = {k: torch.from_numpy(host[k]).to("cuda")
                  for k in ("codes", "text_ids", "text_mask")}
-    grid = [50, 250, 500, 750, 950]
-    batch_s = []
-    with full_f32():
-        for i in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss, at = cli.batch_losses(
-                model, sched, dev_batch, grid,
-                eval_generator(torch.device("cuda"), 0, 0))
-            float(loss), [float(a) for a in at]
-            batch_s.append(time.perf_counter() - t0)
+    batch_s = _evaluate_batch_walls(model, sched, dev_batch)
     with full_f32():
         attn = _attention_f32_times(batch)
         resnet_f32 = _resnet_f32_times(batch)
@@ -3528,7 +3599,7 @@ def phase_evaluate(smi, tar, ckpt, prompt_ckpt, prompt_cfg, batch):
           "checks": checks, "results": {k: v[0] for k, v in results.items()},
           "cli_wall_s": walls, "launches": launches,
           "want_launches_flagship": want,
-          "batch_wall_s": batch_s[1:], "note": "batch_wall_s: one batch's "
+          "batch_wall_s": batch_s, "note": "batch_wall_s: one batch's "
           "6 f32 forwards (eval + 5 grid points), warm, in process",
           "attention_f32": attn, "resnet_f32": resnet_f32, "card": smi})
     if not all(checks.values()):
@@ -3541,20 +3612,30 @@ def phase_evaluate(smi, tar, ckpt, prompt_ckpt, prompt_cfg, batch):
 
 def _attention_f32_times(B):
     """Kernel #1's f32 path at the evaluate path's shapes (one forward's
-    36 calls at batch ``B``): the kernel, its plain version and SDPA by
-    CUDA events, summed over the calls, with the bounds (``attn_bound``:
-    3 x TF32, and the f32 CUDA cores') and the exp floor."""
+    36 calls at batch ``B``): each call held against its plain version on
+    the same inputs (``_hold_call``; raises if it misses), then the
+    kernel, its plain version and SDPA by CUDA events, summed over the
+    calls, with the bounds (``attn_bound``: 3 x TF32, and the f32 CUDA
+    cores') and the exp floor."""
     import torch
     from prompt_tts_tpu_torch.ops.attention import attention_plain
     from prompt_tts_tpu_torch.ops.cuda import opcount
     from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
     g = torch.Generator("cuda").manual_seed(0)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    errs = {"rows_with_keys": 0.0, "all_masked_rows": 0.0}
     flop = nbytes = exps = 0
     with torch.no_grad():
-        for _, Tq, Tk, H, D, masked, n in attn_cases():
+        for label, Tq, Tk, H, D, masked, n in attn_cases():
             q, k, v, bias = attn_inputs(g, B, Tq, Tk, H, D, masked,
                                         torch.float32)
+            check, ok = _hold_call(q, k, v, bias,
+                                   flash_attention(q, k, v, bias))
+            if not ok:
+                raise AssertionError(f"attention f32 {label} B={B}: against "
+                                     f"attention_plain {check}")
+            for rows, r in check.items():
+                errs[rows] = max(errs[rows], r["fwd"])
             for key, fn in (("ms", flash_attention),
                             ("plain_ms", attention_plain),
                             ("library_ms", sdpa)):
@@ -3567,7 +3648,9 @@ def _attention_f32_times(B):
     torch.cuda.empty_cache()
     b = attn_bound(flop, nbytes, "float32")
     del b["flop"], b["bytes"]
-    return {**tot, **b, "exp_ms": exp_floor(exps),
+    return {**tot, **b, "exp_ms": exp_floor(exps), "max_abs_err": errs,
+            "tol": {"rows_with_keys": _fwd_tol(torch.float32),
+                    "all_masked_rows": _fwd_tol(torch.float32, True)},
             "unit": f"one forward's {ATTN_CALLS} calls, f32, B={B}"}
 
 
@@ -4500,17 +4583,17 @@ def phase_torchrun(smi, tmp):
 
 
 def f32_times(smi):
-    """``--f32-times``: the f32 paths of kernels #1, #2 and #6, no checks;
-    only what the parent commits have too, so that two versions of the
-    package can be timed in turns in one call.  At B=32: kernel #1 at
-    ``cli.evaluate``'s shapes and #6 beside their library calls (TF32 off),
-    #1 with the lse and #2 over one train step's 36 calls (kernel, plain,
-    SDPA, bounds); then the flagship ``ModelConfig()`` on seeded random
-    weights and ``SyntheticDataset`` codes: a warm f32 train step (what
-    ``cli.train`` runs without ``--bf16``: wall and peak memory) and one
-    ``cli.evaluate`` batch (6 f32 forwards: wall)."""
+    """``--f32-times``: the f32 paths of kernels #1, #2 and #6 and the f32
+    walls at B=32 alone, through what the parent commits have too, so
+    that two versions of the package can be timed in turns in one call:
+    kernel #1 at ``cli.evaluate``'s shapes and #6 beside their library
+    calls (TF32 off), #1 with the lse and #2 over one train step's 36
+    calls (each call checked against its plain version first); then the
+    flagship ``ModelConfig()`` on seeded random weights and
+    ``SyntheticDataset`` codes: a warm f32 train step (what ``cli.train``
+    runs without ``--bf16``: wall and peak memory) and one ``cli.evaluate``
+    batch (6 f32 forwards: wall)."""
     import torch
-    from prompt_tts_tpu_torch.cli.evaluate import batch_losses
     from prompt_tts_tpu_torch.config import Config
     from prompt_tts_tpu_torch.data.dataset import SyntheticDataset
     from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
@@ -4518,36 +4601,19 @@ def f32_times(smi):
     from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
     from prompt_tts_tpu_torch.pipeline import full_f32, random_init_
     from prompt_tts_tpu_torch.train.state import TrainState
-    from prompt_tts_tpu_torch.train.step import (
-        eval_generator, make_train_step,
-    )
+    from prompt_tts_tpu_torch.train.step import make_train_step
     B = TRAIN_BATCHES[0]
     with full_f32():
         emit({"phase": "f32_times", "kernel": "attention_fwd",
               "evaluate": _attention_f32_times(B), "card": smi})
         emit({"phase": "f32_times", "kernel": "resnet",
               "evaluate": _resnet_f32_times(B), "card": smi})
-        g = torch.Generator("cuda").manual_seed(1)
-        tot = {"bwd": {}, "fwd": {}}
-        for label, Tq, Tk, H, D, masked, n in attn_cases():
-            t = _bwd_case_times(g, B, Tq, Tk, H, D, masked, torch.float32)
-            for key in tot:
-                for k in ("ms", "plain_ms", "library_ms", "flop", "bytes",
-                          "exps"):
-                    tot[key][k] = tot[key].get(k, 0) + n * t[key][k]
-        for key, name in (("fwd", "attention_fwd_lse"),
-                          ("bwd", "attention_bwd")):
-            d = tot[key]
-            exp_ms = exp_floor(d.pop("exps"))
-            b = attn_bound(d.pop("flop"), d.pop("bytes"), "float32")
-            emit({"phase": "f32_times", "kernel": name,
-                  "train": {**d, "bound_ms": b["bound_ms"],
-                            "bound_f32_cuda_cores_ms":
-                                b["bound_f32_cuda_cores_ms"],
-                            "exp_ms": exp_ms,
-                            "unit": f"one train step's {ATTN_CALLS} calls, "
-                                    f"f32, B={B}"},
-                  "card": smi})
+        bwd, fwd = _attn_train_sums(smi, torch.Generator("cuda").manual_seed(
+            1), B, torch.float32)
+        emit({"phase": "f32_times", "kernel": "attention_fwd_lse",
+              "train": fwd, "card": smi})
+        emit({"phase": "f32_times", "kernel": "attention_bwd",
+              "train": bwd, "card": smi})
     cfg = Config()
     dev = torch.device("cuda")
     model = TTSSingleSpeaker(cfg.model, device=dev)
@@ -4561,34 +4627,18 @@ def f32_times(smi):
     gen = torch.Generator(dev).manual_seed(5)
     step(batch, gen)
     torch.cuda.synchronize()
-    walls, peak = [], 0.0
-    for _ in range(3):
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        step(batch, gen)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+    walls, peak, _ = _step_walls(step, batch, gen, 3)
     del step, state
     gc.collect()
     torch.cuda.empty_cache()
     cast_compute_(model.eval(), torch.float32)
-    batch_s = []
-    with full_f32():
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss, at = batch_losses(model, sched, batch,
-                                    [50, 250, 500, 750, 950],
-                                    eval_generator(dev, 0, 0))
-            float(loss), [float(a) for a in at]
-            batch_s.append(time.perf_counter() - t0)
     emit({"phase": "f32_times", "what": f"ModelConfig() f32, B={B}: a warm "
           f"train step (cli.train without --bf16; TF32 as torch sets it) "
           f"and one cli.evaluate batch (eval + 5 grid points, TF32 off)",
           "train_step_s": walls,
           "train_median_step_s": statistics.median(walls),
-          "train_peak_mem_gib": peak, "evaluate_batch_s": batch_s[1:],
+          "train_peak_mem_gib": peak,
+          "evaluate_batch_s": _evaluate_batch_walls(model, sched, batch),
           "card": smi})
 
 
