@@ -11,8 +11,8 @@ Phases, each printed as one JSON object per line:
      tolerance; kernel, plain and library times by CUDA events; the least
      time the card could take, from the bytes and operations of the call,
      and for attention the time of its exps on the special-function units).
-     Both attention kernels run in f32 (CUDA cores) and bf16 (tensor
-     cores), bf16 held to the plain versions that round where the kernels
+     Both attention kernels run in f32 (3 x TF32) and bf16 on the tensor
+     cores, bf16 held to the plain versions that round where the kernels
      round and to the f32 plain versions in relative Frobenius norm; also
      at every head dim on ragged shapes, and on the prompt path's inputs
      (CFG's null text with every key masked, cross-attention over 550 + 32
@@ -25,7 +25,10 @@ Phases, each printed as one JSON object per line:
      B=8, 4, 2 and 1, held to the module arithmetic and to
      fused_resnet_block_plain,
      run twice for the same bits, timed per launch by the profiler, and
-     the wrapper's host cost per call; f32 at B=1); the RVQ encode inside
+     the wrapper's host cost per call; f32, 3 x TF32, at B=1 and at
+     ``cli.evaluate``'s B=32, held to both the same way, and at Cin = 1536
+     to the block in f64, which pins the kernel's folded accumulator); the
+     RVQ encode inside
      the encode slice (its inputs
      are that slice's latents); the attention backward last: checked at
      B=4, then timed, with the forward, at the batch the train slice used,
@@ -163,16 +166,18 @@ Then the phases' wall seconds (``phase_walls_s``), one
 before any result.
 
     python3 chip_smoke.py --lstm-times --rvq-times --resnet-times \
-        --resnet-tiles --synth-times --remat-times
+        --resnet-tiles --synth-times --remat-times --f32-times
 
 runs timings alone, any of them, after the build: both LSTM kernels at the
 paths' three shapes beside cuDNN, the RVQ encode at [32, 900], [4, 225]
 and [1, 225] beside the cdist sequence with both of its bounds (f32 on the
 CUDA cores, 3 x TF32 on the tensor cores), the resnet kernel at every
 block shape (per launch, the library sequence, the wrapper's host cost),
-its tile shapes at B=8 and B=1, the two synthesis slices' warm walls
+its tile shapes at B=8 and B=1 (and f32's at B=32, 8, 4 and 1), the
+two synthesis slices' warm walls
 with a profile, and the flagship train step plain, under the port's remat
-and under two renderings of JAX's remat policy.  ``--lstm-times``,
+and under two renderings of JAX's remat policy, and the f32 paths at
+B=32 (``f32_times``).  ``--lstm-times``,
 ``--resnet-times`` and ``--synth-times`` use only what earlier versions of
 the package have too, so that two checkouts can be timed in one call
 (``--rvq-times`` needs ``ops/cuda/opcount.py``, which came with the
@@ -180,6 +185,7 @@ trainer's remat).
 """
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import io
@@ -262,6 +268,15 @@ LSTM_TOL = 1e-5
 # relative and the difference passes through GN2, conv2 and the output's
 # own rounding.
 RESNET_TOL_F32, RESNET_TOL_BF16 = 1e-4, 3e-2
+# The f32 kernel at the deepest K (Cin = 1536) and B = 32 against the block
+# in f64, max |err| / max(1, max |ref|): the tensor cores truncate each k8
+# step's sum into the accumulator, and the kernel folds a partial
+# accumulator into an f32 total every kFold stages (csrc/resnet.cu).  The
+# limit sits between the folded kernel's reading (6.6e-7 and 7.6e-7 at T =
+# 113 and 225 on an H100) and that of one accumulator over the K loop
+# (1.6e-5 and 2.0e-5), which RESNET_TOL_F32 passes.
+RESNET_TOL_F32_DEEP = 4e-6
+RESNET_DEEP_CIN = 1536
 # The bf16 kernel vs fused_resnet_block_plain, which rounds a, h, a2 and the
 # output where the kernel does: GroupNorm statistics in the last f32 bits
 # and f32 sums in another order can move a value across a bf16 rounding
@@ -408,10 +423,11 @@ def bound(flops, nbytes, dtype):
             "flop": flops, "bytes": nbytes}
 
 
-def attn_bound(flop, nbytes, dtype):
-    """The least time of an attention call in ``dtype``: bf16 on the tensor
-    cores; f32 as the kernels run it, 3 x TF32 (three TF32 products at the
-    card's dense TF32 peak), beside the f32 CUDA cores' floor."""
+def tc_bound(flop, nbytes, dtype):
+    """The least time of a tensor-core kernel's call (attention, the resnet
+    block) in ``dtype``: bf16 on the tensor cores; f32 as the kernels run
+    it, 3 x TF32 (three TF32 products at the card's dense TF32 peak),
+    beside the f32 CUDA cores' floor."""
     if dtype == "bfloat16":
         return bound(flop, nbytes, dtype)
     return {**bound(3 * flop, nbytes, "tfloat32"), "flop": flop,
@@ -877,8 +893,8 @@ def _attn_train_sums(smi, g, B, dtype):
             for k in acc:
                 acc[k] += n * t[key][k]
     exps, fwd_exps = step.pop("exps"), fwd.pop("exps")
-    b = attn_bound(step.pop("flop"), step.pop("bytes"), dname)
-    fb = attn_bound(fwd.pop("flop"), fwd.pop("bytes"), dname)
+    b = tc_bound(step.pop("flop"), step.pop("bytes"), dname)
+    fb = tc_bound(fwd.pop("flop"), fwd.pop("bytes"), dname)
     for d in (b, fb):
         del d["flop"], d["bytes"]
     unit = f"one train step's {ATTN_CALLS} calls, {dname}, B={B}"
@@ -896,7 +912,7 @@ def _bwd_case_times(g, B, Tq, Tk, H, D, masked, dtype=None):
     library's backward (SDPA through autograd); the forward kernel with
     the lse, its plain version (bf16: ``flash_attention_plain``, f32:
     ``attention_plain``) and SDPA's forward; each with its flop, bytes and
-    exps and its bounds (``attn_bound``).  ``fwd_lse_ms`` rides with the
+    exps and its bounds (``tc_bound``).  ``fwd_lse_ms`` rides with the
     backward."""
     import torch
     from prompt_tts_tpu_torch.ops.attention import (
@@ -951,13 +967,13 @@ def _bwd_case_times(g, B, Tq, Tk, H, D, masked, dtype=None):
     del q, k, v, do, o, lse, leaves, out
     torch.cuda.empty_cache()
     return {"bwd": {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "fwd_lse_ms": fwd_ms, **attn_bound(flop, nbytes, dname),
+                    "fwd_lse_ms": fwd_ms, **tc_bound(flop, nbytes, dname),
                     "exps": exps, "exp_ms": exp_floor(exps),
                     "bit_identical": same, "check": check,
                     "tol": _bwd_tol(dtype)},
             "fwd": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                     "library_ms": fwd_lib_ms,
-                    **attn_bound(fwd_flop, fwd_bytes, dname),
+                    **tc_bound(fwd_flop, fwd_bytes, dname),
                     "exps": fwd_exps, "exp_ms": exp_floor(fwd_exps),
                     "tol": _fwd_tol(dtype)}}
 
@@ -1363,13 +1379,19 @@ def resnet_times(smi):
 
 
 def resnet_tile_sweep(smi):
-    """``--resnet-tiles``: the tile rule's choices: each launch's device ms
-    (profiler) at every tile shape the wrapper has, at every distinct block
-    shape, at B = 8 and 1, beside the tile the rule picks."""
+    """``--resnet-tiles``: the tile rule's choices: bf16, each launch's
+    device ms (profiler) at every tile shape the wrapper has, at every
+    distinct block shape, at B = 8 and 1, beside the tile the rule picks;
+    f32 (TF32 off), the wrapper's ms by CUDA events at every f32 tile and
+    block shape at B = 32, 8, 4 and 1, beside the rule's and the rule's
+    device ms by launch (profiler), with the sums over one UNet forward's
+    22 blocks."""
     import torch
+    import torch.nn.functional as F
     from prompt_tts_tpu_torch.ops.cuda.resnet import (
-        TILES, _launch, resnet_tiles,
+        TILES, TILES_F32, _launch, resnet_tiles,
     )
+    from prompt_tts_tpu_torch.pipeline import full_f32
     g = torch.Generator().manual_seed(12)
     for T, cin, cout, _ in _distinct_shapes():
         for B in (2 * N_REQUESTS, 1):
@@ -1386,6 +1408,38 @@ def resnet_tile_sweep(smi):
                   f"Cout={cout}", "B": B, "launch_ms_by_tiles": by_tiles,
                   "rule": "{}x{}".format(*resnet_tiles(B, T, cin, cout)),
                   "card": smi})
+    for B in (TRAIN_BATCHES[0], 2 * N_REQUESTS, N_REQUESTS, 1):
+        sums, launch_sums = {}, {}
+        for T, cin, cout, n in _distinct_shapes():
+            block = _resnet_block(cin, cout, torch.float32, g)
+            norm = block.norm1.norm
+            x = (torch.randn(B, T, cin, generator=g) * 1.5
+                 + torch.randn(cin, generator=g)).to("cuda")
+            by_tiles = {}
+            with torch.no_grad(), full_f32():
+                tp = block.time_emb_proj(
+                    F.silu(torch.randn(B, 1024, generator=g).to("cuda")))
+                for tiles in (*TILES_F32, None):
+                    key = "rule" if tiles is None else "{}x{}".format(*tiles)
+                    by_tiles[key] = cuda_ms(lambda: _launch(
+                        x, tp, block.kernel_weights, norm.num_groups,
+                        norm.eps, tiles), 10)
+                    sums[key] = sums.get(key, 0.0) + n * by_tiles[key]
+                launch_ms = resnet_launch_ms(lambda: _launch(
+                    x, tp, block.kernel_weights, norm.num_groups, norm.eps,
+                    None))
+            for key, v in launch_ms.items():
+                launch_sums[key] = launch_sums.get(key, 0.0) + n * v
+            emit({"phase": "resnet_tiles_f32", "case": f"T={T} Cin={cin} "
+                  f"Cout={cout}", "B": B, "blocks": n, "ms_by_tiles": by_tiles,
+                  "rule_launch_ms": launch_ms,
+                  "rule": "{}x{}".format(*resnet_tiles(B, T, cin, cout,
+                                                       torch.float32)),
+                  "card": smi})
+            del block, x, tp
+        emit({"phase": "resnet_tiles_f32", "B": B, "unit": "one UNet "
+              "forward's 22 blocks, f32", "ms_by_tiles": sums,
+              "rule_launch_ms": launch_sums, "card": smi})
 
 
 def synth_times(smi):
@@ -1430,12 +1484,14 @@ def phase_resnet(smi):
     """The fused resnet block at every block shape of one flagship UNet
     forward: bf16 at B=8 (CFG's doubled batch of 4 requests), at B=4 (the
     DDIM slice's batch), at B=1 (a streamed or long-form streamed request)
-    and at B=2 (the same under CFG), where the tile rule picks other tiles,
-    each checked against the module arithmetic and against
-    fused_resnet_block_plain and run twice for the same bits; B=8 also
-    timed (kernel, its launches, plain version, and the channels-first
-    library sequence); f32 at B=1 (checked).  Then the wrapper's host
-    cost.  Returns the bf16 sums over the forward."""
+    and at B=2 (the same under CFG), where the tile rule picks other tiles;
+    f32 (3 x TF32) at B=1 and at ``cli.evaluate``'s B=32; each checked
+    against the module arithmetic and against fused_resnet_block_plain and
+    run twice for the same bits, f32 B=32 at Cin = 1536 also against the
+    block in f64 (RESNET_TOL_F32_DEEP); bf16 B=8 also timed (kernel, its
+    launches, plain version, and the channels-first library sequence).
+    Then the wrapper's host cost.  Returns the bf16 sums over the
+    forward."""
     import torch
     import torch.nn.functional as F
     from prompt_tts_tpu_torch.config import ModelConfig
@@ -1450,7 +1506,7 @@ def phase_resnet(smi):
     emit({"phase": "resnet_shapes", "blocks": len(shapes),
           "shapes": [list(t) for t in shapes]})
     g = torch.Generator().manual_seed(12)
-    per_shape, err_all, tiles_held = {}, 0.0, set()
+    per_shape, err_all, tiles_held = {}, 0.0, {}
     for _, T, cin, cout in shapes:
         if (T, cin, cout) in per_shape:
             continue
@@ -1460,7 +1516,9 @@ def phase_resnet(smi):
                               (torch.bfloat16, N_REQUESTS, RESNET_TOL_BF16),
                               (torch.bfloat16, 1, RESNET_TOL_BF16),
                               (torch.bfloat16, 2, RESNET_TOL_BF16),
-                              (torch.float32, 1, RESNET_TOL_F32)):
+                              (torch.float32, 1, RESNET_TOL_F32),
+                              (torch.float32, TRAIN_BATCHES[0],
+                               RESNET_TOL_F32)):
             timed = dtype == torch.bfloat16 and B == 2 * N_REQUESTS
             block = _resnet_block(cin, cout, dtype, g)
             x = (torch.randn(B, T, cin, generator=g) * 1.5
@@ -1476,30 +1534,42 @@ def phase_resnet(smi):
                 ok = bool(torch.isfinite(out).all()) and err <= tol * scale
                 dname = str(dtype).split(".")[-1]
                 rec = {"max_abs_err": err, "tol": tol * scale}
-                if dtype == torch.bfloat16:
-                    norm = block.norm1.norm
+                norm = block.norm1.norm
 
-                    def kernel():
-                        return fused_resnet_block(
-                            x, tp, block.kernel_weights, norm.num_groups,
-                            norm.eps)
-                    fused = fused_resnet_block_plain(
+                def kernel():
+                    return fused_resnet_block(
                         x, tp, block.kernel_weights, norm.num_groups,
-                        norm.eps).float()
-                    d = (out.float() - fused).abs()
+                        norm.eps)
+                fused = fused_resnet_block_plain(
+                    x, tp, block.kernel_weights, norm.num_groups,
+                    norm.eps).float()
+                d = (out.float() - fused).abs()
+                if dtype == torch.bfloat16:
                     excess = (d - FUSED_ATOL_BF16
                               - FUSED_RTOL_BF16 * fused.abs()).max().item()
-                    same = torch.equal(out, resnet_block(block, x, temb))
-                    ok = ok and excess <= 0 and same
-                    tiles = resnet_tiles(B, T, cin, cout)
-                    tiles_held.add(tiles)
-                    rec.update({
-                        "fused_plain_max_abs_err": d.max().item(),
-                        "fused_plain_excess": excess,
-                        "fused_plain_tol": [FUSED_ATOL_BF16,
-                                            FUSED_RTOL_BF16],
-                        "same_bits_twice": same,
-                        "tiles": list(tiles)})
+                    rec.update({"fused_plain_excess": excess,
+                                "fused_plain_tol": [FUSED_ATOL_BF16,
+                                                    FUSED_RTOL_BF16]})
+                else:   # the same contract as against the module
+                    excess = d.max().item() - tol * max(
+                        1.0, fused.abs().max().item())
+                    rec["fused_plain_tol"] = tol
+                same = torch.equal(out, resnet_block(block, x, temb))
+                ok = ok and excess <= 0 and same
+                if (dtype == torch.float32 and B == TRAIN_BATCHES[0]
+                        and cin == RESNET_DEEP_CIN):
+                    ref64 = resnet_block_plain(copy.deepcopy(block).double(),
+                                               x.double(), tp.double())
+                    deep = ((out.double() - ref64).abs().max().item()
+                            / max(1.0, ref64.abs().max().item()))
+                    rec.update({"f64_rel_err": deep,
+                                "f64_rel_tol": RESNET_TOL_F32_DEEP})
+                    ok = ok and deep <= RESNET_TOL_F32_DEEP
+                    del ref64
+                tiles = resnet_tiles(B, T, cin, cout, dtype)
+                tiles_held.setdefault(dname, set()).add(tiles)
+                rec.update({"fused_plain_max_abs_err": d.max().item(),
+                            "same_bits_twice": same, "tiles": list(tiles)})
                 if timed:
                     xc = x.transpose(1, 2).contiguous()
                     rec.update({
@@ -1525,9 +1595,11 @@ def phase_resnet(smi):
                 row = rec
             del block, x, out, ref
         per_shape[(T, cin, cout)] = row
-    emit({"phase": "resnet_tiles_held", "batches": [2 * N_REQUESTS,
-                                                    N_REQUESTS, 1, 2],
-          "tiles": sorted(list(t) for t in tiles_held)})
+    emit({"phase": "resnet_tiles_held",
+          "batches": {"bfloat16": [2 * N_REQUESTS, N_REQUESTS, 1, 2],
+                      "float32": [1, TRAIN_BATCHES[0]]},
+          "tiles": {k: sorted(list(t) for t in v)
+                    for k, v in tiles_held.items()}})
     unet = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0,
             "bytes": 0}
     launch_ms = {}
@@ -3615,7 +3687,7 @@ def _attention_f32_times(B):
     36 calls at batch ``B``): each call held against its plain version on
     the same inputs (``_hold_call``; raises if it misses), then the
     kernel, its plain version and SDPA by CUDA events, summed over the
-    calls, with the bounds (``attn_bound``: 3 x TF32, and the f32 CUDA
+    calls, with the bounds (``tc_bound``: 3 x TF32, and the f32 CUDA
     cores') and the exp floor."""
     import torch
     from prompt_tts_tpu_torch.ops.attention import attention_plain
@@ -3646,7 +3718,7 @@ def _attention_f32_times(B):
             exps += n * B * H * Tq * Tk
             del q, k, v, bias
     torch.cuda.empty_cache()
-    b = attn_bound(flop, nbytes, "float32")
+    b = tc_bound(flop, nbytes, "float32")
     del b["flop"], b["bytes"]
     return {**tot, **b, "exp_ms": exp_floor(exps), "max_abs_err": errs,
             "tol": {"rows_with_keys": _fwd_tol(torch.float32),
@@ -3656,16 +3728,24 @@ def _attention_f32_times(B):
 
 def _resnet_f32_times(B):
     """Kernel #6's f32 path at the evaluate path's shapes (one UNet
-    forward's 22 blocks at batch ``B``; measurement only): the wrapper and
-    the library sequence (``resnet_sequence``, channels-first) by CUDA
-    events, summed over the blocks, with the bound at the f32 CUDA cores'
-    peak.  Run with TF32 off, as the evaluate path runs."""
+    forward's 22 blocks at batch ``B``): each distinct block's call first
+    held against the module arithmetic (``resnet_block_plain``) and
+    against ``fused_resnet_block_plain`` on the same inputs, within
+    RESNET_TOL_F32 of max(1, max |ref|) (raises if it misses), then the
+    wrapper, the module arithmetic and the library sequence
+    (``resnet_sequence``, channels-first) by CUDA events, summed over the
+    blocks, with the bounds (``tc_bound``: 3 x TF32, and the f32 CUDA
+    cores').  Run with TF32 off, as the evaluate path runs."""
     import torch
     import torch.nn.functional as F
     from prompt_tts_tpu_torch.ops.cuda import opcount
-    from prompt_tts_tpu_torch.ops.cuda.resnet import fused_resnet_block
+    from prompt_tts_tpu_torch.ops.cuda.resnet import (
+        fused_resnet_block, fused_resnet_block_plain,
+    )
+    from prompt_tts_tpu_torch.ops.resnet import resnet_block_plain
     g = torch.Generator().manual_seed(12)
-    tot = {"ms": 0.0, "library_ms": 0.0}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    errs = {"module": 0.0, "fused_plain": 0.0}
     flop = nbytes = blocks = 0
     with torch.no_grad():
         for T, cin, cout, n in _distinct_shapes():
@@ -3676,8 +3756,30 @@ def _resnet_f32_times(B):
             tp = block.time_emb_proj(
                 F.silu(torch.randn(B, 1024, generator=g).to("cuda")))
             xc = x.transpose(1, 2).contiguous()
-            tot["ms"] += n * cuda_ms(lambda: fused_resnet_block(
-                x, tp, block.kernel_weights, norm.num_groups, norm.eps), 5)
+
+            def kernel():
+                return fused_resnet_block(x, tp, block.kernel_weights,
+                                          norm.num_groups, norm.eps)
+            out = kernel()
+            check = {}
+            for name, ref in (
+                    ("module", resnet_block_plain(block, x, tp)),
+                    ("fused_plain", fused_resnet_block_plain(
+                        x, tp, block.kernel_weights, norm.num_groups,
+                        norm.eps))):
+                err = (out - ref).abs().max().item()
+                tol = RESNET_TOL_F32 * max(1.0, ref.abs().max().item())
+                check[name] = (err, tol)
+                errs[name] = max(errs[name], err)
+                del ref
+            if not (bool(torch.isfinite(out).all())
+                    and all(e <= t for e, t in check.values())):
+                raise AssertionError(f"resnet f32 T={T} {cin}->{cout} "
+                                     f"B={B}: (max |err|, tol) {check}")
+            del out
+            tot["ms"] += n * cuda_ms(kernel, 5)
+            tot["plain_ms"] += n * cuda_ms(
+                lambda: resnet_block_plain(block, x, tp), 3)
             tot["library_ms"] += n * cuda_ms(
                 lambda: resnet_sequence(block, xc, tp), 5)
             w = 3 * cin * cout + 3 * cout * cout + (
@@ -3687,8 +3789,10 @@ def _resnet_f32_times(B):
             blocks += n
             del block, x, tp, xc
     torch.cuda.empty_cache()
-    b = bound(flop, nbytes, "float32")
-    return {**tot, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+    b = tc_bound(flop, nbytes, "float32")
+    del b["flop"], b["bytes"]
+    return {**tot, **b, "max_abs_err": errs,
+            "tol": f"{RESNET_TOL_F32} x max(1, max |ref|)",
             "unit": f"one UNet forward's {blocks} blocks, f32, B={B}"}
 
 
@@ -4588,7 +4692,8 @@ def f32_times(smi):
     that two versions of the package can be timed in turns in one call:
     kernel #1 at ``cli.evaluate``'s shapes and #6 beside their library
     calls (TF32 off), #1 with the lse and #2 over one train step's 36
-    calls (each call checked against its plain version first); then the
+    calls (each call, and each of #6's blocks, checked against its plain
+    version first); then the
     flagship ``ModelConfig()`` on seeded random weights and
     ``SyntheticDataset`` codes: a warm f32 train step (what ``cli.train``
     runs without ``--bf16``: wall and peak memory) and one ``cli.evaluate``

@@ -19,52 +19,68 @@
 // b1 + temb_proj at that channel for GN2) so that E[(x-K)^2] - E[x-K]^2
 // does not cancel.
 //
-// bf16: five launches, the products on wgmma.
+// Both types make the same five launches, the products on wgmma:
 //   1. resnet_stats_kernel: per (128-row chunk, 64-channel slab, batch) the
 //      column sums of x - K and their squares, 16-byte loads of whole
 //      128-byte row segments.
 //   2. resnet_act_kernel: reduces the partial sums of its slab's groups in
-//      f64 (fixed order) to mean and rstd, then writes a =
-//      bf16(silu(GN1(x))) once, [B, T, Cin].  Normalising once here, and
-//      not in every output-channel tile of the product, is what the
-//      wmma version this replaces did not do (12 times per element at
-//      Cout = 768).
+//      f64 (fixed order) to mean and rstd, then writes a = silu(GN1(x))
+//      once, [B, T, Cin].  Normalising once here, and not in every
+//      output-channel tile of the product, is what the kernels this
+//      replaces did not do (12 times per element at Cout = 768).
 //   3. resnet_conv_tc_kernel<.., false>: conv1 as an implicit GEMM: M = T
-//      rows of one batch element, N = Cout, K = 3 taps x Cin.  A 3-D TMA
-//      map over a [B, T, Cin] with a 64-channel x BM-row box and the
-//      128-byte swizzle: tap s in {-1, 0, 1} is one box at row t0 + s, and
-//      TMA zero-fills rows outside [0, T) -- exactly the convolution's zero
-//      padding of the activated input -- and channels past Cin.  The
-//      weights, packed once as [3, Cout, Cin] (K-major), under a second map.
-//      A 4-stage ring in shared memory with full/empty mbarriers, kept full
-//      by one producer warp; one or two consumer warpgroups (BM = 64 or
-//      128) run wgmma m64nBNk16 (BN = 64 or 128) with both operands
-//      in shared memory and f32 accumulators in registers.  Epilogue from
-//      registers: + b1 + temb_proj[b], h rounded to bf16 and stored, and
-//      the column sums of the rounded h - K2 for GN2, per (row tile,
-//      channel).
-//   4. resnet_act_kernel again: a2 = bf16(silu(GN2(h))) (reusing a's
-//      buffer).
+//      rows of one batch element, N = Cout, K = 3 taps x Cin.  A TMA map
+//      over a [B, T, Cin] whose box is one 128-byte row of channels x BM
+//      rows, with the 128-byte swizzle: tap s in {-1, 0, 1} is one box at
+//      row t0 + s, and TMA zero-fills rows outside [0, T) -- exactly the
+//      convolution's zero padding of the activated input -- and channels
+//      past Cin.  The weights, packed once as [3, Cout, Cin] (K-major),
+//      under a second map.  A ring of stages in shared memory with
+//      full/empty mbarriers, kept full by one producer warp; one or two
+//      consumer warpgroups (BM = 64 or 128) run wgmma m64nBN (BN = 64 or
+//      128) with both operands in shared memory and f32 accumulators in
+//      registers.  Epilogue from registers: + b1 + temb_proj[b], h rounded
+//      to x's type and stored, and the column sums of the stored h - K2
+//      for GN2, per (row tile, channel).
+//   4. resnet_act_kernel again: a2 = silu(GN2(h)) (reusing a's buffer).
 //   5. resnet_conv_tc_kernel<.., true>: conv2 the same way over a2; a 1x1
-//      shortcut is more K steps over the raw x (its own map) against ws
-//      [Cout, Cin]; an identity shortcut adds x in the epilogue; + b2, + bs.
+//      shortcut is more K steps over x (its own map) against ws [Cout,
+//      Cin]; an identity shortcut adds x in the epilogue; + b2, + bs.
 //   The tile shape (BM, BN) comes from the caller (ops/cuda/resnet.py:
 //   resnet_tiles).
-//   What bounds it.  A block is 2 B T (3 Cin Cout + 3 Cout^2 [+ Cin Cout])
-//   flops against a few MB of activations: the tensor-core rate bounds it.
-//   The activation passes add one write and about three reads of a and a2,
-//   mostly from L2.
 //
-// f32: three launches on the CUDA cores (kept for the f32 contracts, 1e-4
-// on the kernel and 5e-4 on the model, which TF32 would miss):
-//   1. resnet_gn_stats_f32_kernel: one CTA per (group, batch row) writes
-//      GN1's mean and rstd.
-//   2./3. resnet_conv_f32_kernel: a 64-row x 64-channel implicit GEMM over
-//      K = 3 * Cmain, GN + SiLU applied in the prologue to each loaded tile
-//      and its +-1-row halo; conv1's epilogue writes per-(T-tile,
-//      channel-tile, group) partial sums of h - K2, which conv2 reduces in
-//      f64.  f32 FMAs, 8x4 micro-tiles a thread, tiles staged through
-//      registers.
+// bf16: a and a2 rounded to bf16; a stage is one 64-channel box of a (BM
+// rows) and of w (BN rows), four wgmma m64nBNk16; four stages.
+//
+// f32: every product in 3 x TF32, which holds the f32 contracts (1e-4 on
+// the kernel, 5e-4 on the model) that one TF32 product would miss.  Each
+// operand is split once into hi = rna(v) and lo = rna(v - hi) (cvt.rna:
+// TF32, the low 13 bits zero), kept as two planes [2][...] of one array:
+// the weights when the wrapper packs them (ops/cuda/resnet.py:
+// split_planes, the same bits as cvt.rna), a and a2 by the activation
+// pass as it writes them, and x (for a 1x1 shortcut) by the first
+// activation pass beside a.  A stage holds the hi and lo boxes
+// of one 32-channel row of a and of w, fetched by one 4-D TMA load each
+// (the plane is the box's outer dimension); its products are wgmma
+// m64nBNk8 .tf32, a_hi w_lo, then a_lo w_hi, then a_hi w_hi, four k8 steps
+// each (the small terms first, as rvq.cu and the attention kernels take
+// them; a_lo w_lo, ~2^-22 of |a||w|, is dropped).  The tensor cores add
+// each k8 step's products to the accumulator with truncation, not
+// rounding, so one accumulator over the 3 x 3 Cin / 8 steps of a K loop
+// drifts toward zero: its error grew with Cin, to ten times the f32 FMA
+// kernel's at Cin = 1536, and took the prompt model's f32 card-against-CPU
+// check past its 5e-4.  So the products of kFold = 3 stages (one chunk's
+// three taps, 36 steps) go to a partial accumulator, which is added to an
+// f32 total (rounded to nearest) once its products are done.  Three stages; the tile is 128 x
+// 128 (64 KB a stage) or 64 x 64 (32 KB: two CTAs share an SM).
+//
+// What bounds it.  A block is 2 B T (3 Cin Cout + 3 Cout^2 [+ Cin Cout])
+// flops against a few MB of activations: the tensor-core rate bounds it,
+// three times over in f32 (three TF32 products at 495 TFLOP/s).  The
+// activation passes add one write and about three reads of a and a2,
+// mostly from L2.  In f32 a stage brings 256 bytes a tile row for 32
+// channels of K where bf16 brings 128 for 64: L2's rate may set the pace
+// before the tensor cores do.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C interface,
 // loaded with ctypes by prompt_tts_tpu_torch/ops/cuda/resnet.py).  The TMA
@@ -75,6 +91,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <initializer_list>
+#include <type_traits>
 
 #include "tma_host.cuh"
 #include "wgmma.cuh"
@@ -89,373 +106,88 @@ constexpr int kMaxCpg = 256;   // channels a group may hold
 
 __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
 
-// ------------------------------------------------------------------ f32
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
-constexpr int kBM = 64;       // rows (time steps) per tile
-constexpr int kBN = 64;       // output channels per tile
-constexpr int kBK = 32;       // input channels per K step
-constexpr int kThreads = 128;
-constexpr int kStatsThreads = 256;
-
-struct F32Tile {
-  static constexpr int LDA = kBK + 4;      // A tile row stride (floats)
-  static constexpr int LDB = kBN + 4;      // W tile row stride
-  static constexpr int LDC = kBN + 4;      // output tile row stride
-  static constexpr int kA = ((kBM + 2) * LDA * 4 + 127) / 128 * 128;
-  static constexpr int kW = (3 * kBK * LDB * 4 + 127) / 128 * 128;
-  static constexpr int kC = kBM * LDC * 4;
-  static constexpr int kMain = (kA + kW) > kC ? (kA + kW) : kC;
-};
-
-struct F32Args {
-  const float* in;       // [B, T, Cmain]: x (conv1) or h (conv2)
-  const float* x;        // [B, T, Cin]: the block input (shortcut)
-  const float* w;        // [3, Cout, Cmain]
-  const float* ws;       // [Cout, Cin] or null (identity shortcut, conv2)
-  const float* bias;     // [Cout] (b1 or b2)
-  const float* bs;       // [Cout] shortcut bias or null
-  const float* temb;     // [B, Cout]
-  const float* b1;       // [Cout]: with temb, GN2's shift K2
-  const float* gamma;    // [Cmain] the prologue's GroupNorm
-  const float* beta;
-  const float* stats1;   // [B, G, 2] GN1 mean, rstd (conv1)
-  float* part;           // [B, nT, nN, G, 2] GN2 partials (written by conv1)
-  float* out;            // [B, T, Cout]
-  int B, T, Cin, Cmain, Cout, G;
-  float eps;
-};
-
-// GroupNorm statistics of x: mean and rstd per (b, g).
-__global__ void __launch_bounds__(kStatsThreads)
-resnet_gn_stats_f32_kernel(const float* __restrict__ x,
-                           float* __restrict__ stats, int T_, int C, int G,
-                           float eps) {
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int cpg = C / G;
-  const int rows = kStatsThreads / cpg;   // rows a pass covers
-  const int tid = threadIdx.x;
-  const float* xb = x + (long long)b * T_ * C + g * cpg;
-  const float K = xb[0];
-  float s1 = 0.f, s2 = 0.f;
-  if (tid < rows * cpg) {
-    const int c = tid % cpg;
-    for (int t = tid / cpg; t < T_; t += rows) {
-      const float v = xb[(long long)t * C + c] - K;
-      s1 += v;
-      s2 += v * v;
-    }
-  }
-  __shared__ double red[2][kStatsThreads / 32];
-  double d1 = s1, d2 = s2;
-  for (int o = 16; o > 0; o >>= 1) {
-    d1 += __shfl_xor_sync(0xffffffffu, d1, o);
-    d2 += __shfl_xor_sync(0xffffffffu, d2, o);
-  }
-  if ((tid & 31) == 0) { red[0][tid >> 5] = d1; red[1][tid >> 5] = d2; }
-  __syncthreads();
-  if (tid == 0) {
-    double a = 0.0, q = 0.0;
-    for (int w = 0; w < kStatsThreads / 32; ++w) { a += red[0][w]; q += red[1][w]; }
-    const double n = (double)T_ * cpg;
-    const double m = a / n;
-    const double var = fmax(q / n - m * m, 0.0);
-    stats[(b * G + g) * 2 + 0] = (float)(K + m);
-    stats[(b * G + g) * 2 + 1] = (float)(1.0 / sqrt(var + (double)eps));
-  }
+// Two neighbouring values of a row, as floats.
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  return make_float2(__low2float(v), __high2float(v));
 }
 
-// The k3 convolution as an implicit GEMM over one 64 x 64 output tile.
-template <bool kConv2>
-__global__ void __launch_bounds__(kThreads)
-resnet_conv_f32_kernel(F32Args a) {
-  using L = F32Tile;
-  __shared__ __align__(128) unsigned char smem[L::kMain];
-  __shared__ float mean_s[kMaxGroups], rstd_s[kMaxGroups];
-  __shared__ float colsum[2][2][kBN];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Ws = reinterpret_cast<float*>(smem + L::kA);
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * kBM, co0 = blockIdx.y * kBN, b = blockIdx.z;
-  const int T_ = a.T, Cout = a.Cout, Cm = a.Cmain, G = a.G;
-  const int cpg = Cm / G;
-  const int nT = gridDim.x, nN = gridDim.y;
-
-  // the prologue's GroupNorm statistics for this batch row
-  if (!kConv2) {
-    for (int g = tid; g < G; g += kThreads) {
-      mean_s[g] = a.stats1[(b * G + g) * 2 + 0];
-      rstd_s[g] = a.stats1[(b * G + g) * 2 + 1];
-    }
-  } else {
-    // reduce conv1's partials of h - K2: for group g, every T-tile and
-    // the (at most two) channel tiles that hold its channels
-    for (int g = tid; g < G; g += kThreads) {
-      const int c0 = g * cpg;
-      const float K = a.b1[c0] + a.temb[(long long)b * a.Cout + c0];
-      double s1 = 0.0, s2 = 0.0;
-      const int n_lo = c0 / kBN, n_hi = (c0 + cpg - 1) / kBN;
-      for (int tt = 0; tt < nT; ++tt)
-        for (int nt = n_lo; nt <= n_hi; ++nt) {
-          const float* p = a.part + ((((long long)b * nT + tt) * nN + nt) * G + g) * 2;
-          s1 += p[0];
-          s2 += p[1];
-        }
-      const double n = (double)T_ * cpg;
-      const double m = s1 / n;
-      const double var = fmax(s2 / n - m * m, 0.0);
-      mean_s[g] = (float)(K + m);
-      rstd_s[g] = (float)(1.0 / sqrt(var + (double)a.eps));
-    }
-  }
-  __syncthreads();
-
-  const int tx = tid & 15, ty = tid >> 4;   // 8 rows x 4 cols a thread
-  float facc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) facc[i][j] = 0.f;
-
-  // one K step: A rows [row_off, row_off + 64) against W slot `slot`
-  auto kstep = [&](int row_off, int slot) {
-    for (int kc = 0; kc < kBK; ++kc) {
-      float av[8], bv[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) av[i] = As[(ty * 8 + i + row_off) * L::LDA + kc];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Ws[(slot * kBK + kc) * L::LDB + tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) facc[i][j] = fmaf(av[i], bv[j], facc[i][j]);
-    }
-  };
-
-  // Operand tiles move in 16-byte vectors (the wrapper checks that every
-  // channel count is a multiple of 8 and every pointer 16-byte aligned),
-  // staged through registers: the next K step's global loads start
-  // before this step's products.
-  constexpr int VEC = 4;
-  constexpr int VPR = kBK / VEC;                      // vectors per A row
-  constexpr int RPP = kThreads / VPR;                 // A rows per pass
-  constexpr int kAPass = (kBM + 2 + RPP - 1) / RPP;
-  constexpr int KV = kBK / VEC;                       // vectors per W row
-  constexpr int kWVec = 3 * kBN * KV / kThreads;      // W vectors a thread
-  const int kc = (tid % VPR) * VEC;                   // this thread's channels
-  float4 ra[kAPass], rw[kWVec];
-  unsigned amask = 0;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  // A rows r of the tile hold time t = t0 - 1 + r (halo at r = 0, 65)
-  auto load_a = [&](const float* src, int C, int ci0) {
-    amask = 0;
-#pragma unroll
-    for (int i = 0; i < kAPass; ++i) {
-      const int r = tid / VPR + i * RPP, t = t0 - 1 + r, c = ci0 + kc;
-      const bool ok = r < kBM + 2 && t >= 0 && t < T_ && c < C;
-      ra[i] = ok ? __ldg(reinterpret_cast<const float4*>(src + (long long)t * C + c))
-                 : zero4;
-      amask |= (unsigned)ok << i;
-    }
-  };
-  // GN + SiLU (or, raw, nothing) on the staged rows
-  auto store_a = [&](int ci0, bool raw) {
-    float sc[VEC], sh[VEC];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const int c = min(ci0 + kc + j, Cm - 1), g = c / cpg;
-      sc[j] = raw ? 1.f : a.gamma[c] * rstd_s[g];
-      sh[j] = raw ? 0.f : a.beta[c] - mean_s[g] * sc[j];
-    }
-#pragma unroll
-    for (int i = 0; i < kAPass; ++i) {
-      const int r = tid / VPR + i * RPP;
-      if (r >= kBM + 2) break;
-      float4 v = ra[i];
-      if (!raw) {
-        float* e = reinterpret_cast<float*>(&v);
-        const bool ok = (amask >> i) & 1u;
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) e[j] = ok ? silu(e[j] * sc[j] + sh[j]) : 0.f;
-      }
-      *reinterpret_cast<float4*>(As + r * L::LDA + kc) = v;
-    }
-  };
-  // W vectors: `slots` taps of [kBN out-channels x kBK in-channels] from a
-  // [taps, Cout, C] array (K-major), stored transposed as [tap * kBK + k][n]
-  auto load_w = [&](const float* src, int C, int ci0, int slots) {
-#pragma unroll
-    for (int i = 0; i < kWVec; ++i) {
-      const int v = tid + i * kThreads;
-      const int tap = v / (kBN * KV), rem = v % (kBN * KV);
-      const int co = co0 + rem / KV, c = ci0 + (rem % KV) * VEC;
-      rw[i] = (tap < slots && c < C && co < Cout)
-                  ? __ldg(reinterpret_cast<const float4*>(
-                        src + ((long long)tap * Cout + co) * C + c))
-                  : zero4;
-    }
-  };
-  auto store_w = [&]() {
-#pragma unroll
-    for (int i = 0; i < kWVec; ++i) {
-      const int v = tid + i * kThreads;
-      const int tap = v / (kBN * KV), rem = v % (kBN * KV);
-      const int n = rem / KV, k = (rem % KV) * VEC;
-      const float* e = reinterpret_cast<const float*>(&rw[i]);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) Ws[(tap * kBK + k + j) * L::LDB + n] = e[j];
-    }
-  };
-
-  // main K loop: 3 taps over the normalised, activated input
-  const float* in = a.in + (long long)b * T_ * Cm;
-  load_a(in, Cm, 0);
-  load_w(a.w, Cm, 0, 3);
-  for (int ci0 = 0; ci0 < Cm; ci0 += kBK) {
-    store_a(ci0, false);
-    store_w();
-    __syncthreads();
-    if (ci0 + kBK < Cm) {
-      load_a(in, Cm, ci0 + kBK);
-      load_w(a.w, Cm, ci0 + kBK, 3);
-    }
-    kstep(0, 0);
-    kstep(1, 1);
-    kstep(2, 2);
-    __syncthreads();
-  }
-
-  // conv2's 1x1 shortcut: one more K loop over the raw x tile, whose rows
-  // 1..64 hold t0..t0+63 (the halo rows are loaded but not used)
-  if (kConv2 && a.ws != nullptr) {
-    const float* xb = a.x + (long long)b * T_ * a.Cin;
-    load_a(xb, a.Cin, 0);
-    load_w(a.ws, a.Cin, 0, 1);
-    for (int ci0 = 0; ci0 < a.Cin; ci0 += kBK) {
-      store_a(ci0, true);
-      store_w();
-      __syncthreads();
-      if (ci0 + kBK < a.Cin) {
-        load_a(xb, a.Cin, ci0 + kBK);
-        load_w(a.ws, a.Cin, ci0 + kBK, 1);
-      }
-      kstep(1, 0);
-      __syncthreads();
-    }
-  }
-
-  // accumulators -> the output tile Cs (aliases As/Ws: the loops above
-  // ended with a barrier)
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Cs[(ty * 8 + i) * L::LDC + tx * 4 + j] = facc[i][j];
-  __syncthreads();
-
-  // epilogue: thread -> one column, every other row
-  const int n = tid % kBN, half = tid / kBN;
-  const int co = co0 + n;
-  float* out = a.out + (long long)b * T_ * Cout;
-  float s1 = 0.f, s2 = 0.f;
-  if (co < Cout) {
-    float add = a.bias[co];
-    float K2 = 0.f;
-    if (!kConv2) {
-      add += a.temb[(long long)b * Cout + co];
-      const int c0 = (co / (Cout / G)) * (Cout / G);
-      K2 = a.b1[c0] + a.temb[(long long)b * Cout + c0];
-    } else if (a.bs != nullptr) {
-      add += a.bs[co];
-    }
-    const float* xb = a.x + (long long)b * T_ * a.Cin;
-    for (int r = half; r < kBM; r += 2) {
-      const int t = t0 + r;
-      if (t >= T_) break;
-      float v = Cs[r * L::LDC + n] + add;
-      if (kConv2 && a.ws == nullptr) v += xb[(long long)t * a.Cin + co];
-      out[(long long)t * Cout + co] = v;
-      if (!kConv2) {   // GN2 statistics of h
-        const float d = v - K2;
-        s1 += d;
-        s2 += d * d;
-      }
-    }
-  }
-  if (!kConv2) {
-    colsum[half][0][n] = s1;
-    colsum[half][1][n] = s2;
-    __syncthreads();
-    const int cpg2 = Cout / G;
-    const int g_lo = co0 / cpg2;
-    const int g_hi = (min(co0 + kBN, Cout) - 1) / cpg2;
-    for (int g = g_lo + tid; g <= g_hi; g += kThreads) {
-      const int c_lo = max(g * cpg2, co0) - co0;
-      const int c_hi = min((g + 1) * cpg2, min(co0 + kBN, Cout)) - co0;
-      float p1 = 0.f, p2 = 0.f;
-      for (int c = c_lo; c < c_hi; ++c) {
-        p1 += colsum[0][0][c] + colsum[1][0][c];
-        p2 += colsum[0][1][c] + colsum[1][1][c];
-      }
-      float* p = a.part + ((((long long)b * nT + blockIdx.x) * nN + blockIdx.y) * G + g) * 2;
-      p[0] = p1;
-      p[1] = p2;
-    }
-  }
+// Store two neighbouring values rounded to the element type; returns what
+// was stored.
+__device__ __forceinline__ float2 st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  return make_float2(a, b);
 }
-
-// ----------------------------------------------------------------- bf16
+__device__ __forceinline__ float2 st2(bf16* p, float a, float b) {
+  const __nv_bfloat162 o = __floats2bfloat162_rn(a, b);
+  *reinterpret_cast<__nv_bfloat162*>(p) = o;
+  return make_float2(__low2float(o), __high2float(o));
+}
 
 constexpr int kSlab = 64;       // channels a stats / activation CTA covers
 constexpr int kChunk = 128;     // rows a stats / activation CTA covers
 constexpr int kSAThreads = 256;
-constexpr int kLanes = kSAThreads / 8;   // row lanes (8 vectors a row)
-constexpr int kRows = kChunk / kLanes;   // rows a thread loads
-constexpr int kBoxK = 64;       // channels per K step: one 128-byte row
+
+// How a stats / activation CTA cuts its 128 x 64 block: a thread takes one
+// 16-byte vector (V elements) of each of ROWS rows, LANES rows apart.
+template <typename E>
+struct Slab {
+  static constexpr int V = 16 / sizeof(E);
+  static constexpr int VPR = kSlab / V;              // vectors a row
+  static constexpr int LANES = kSAThreads / VPR;     // row lanes
+  static constexpr int ROWS = kChunk / LANES;        // rows a thread loads
+};
 
 // GN1's partial sums: per (128-row chunk, channel) the sum of x - K and of
 // its square, part[b][chunk][c].
+template <typename E>
 __global__ void __launch_bounds__(kSAThreads)
-resnet_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ part,
+resnet_stats_kernel(const E* __restrict__ x, float2* __restrict__ part,
                     int T_, int C, int cpg) {
+  using S = Slab<E>;
   const int chunk = blockIdx.x, c0 = blockIdx.y * kSlab, b = blockIdx.z;
-  const int v = threadIdx.x % 8, lr = threadIdx.x / 8;
-  const int c = c0 + 8 * v;
-  const bf16* xb = x + (long long)b * T_ * C;
-  float s1[8], s2[8], K[8];
+  const int v = threadIdx.x % S::VPR, lr = threadIdx.x / S::VPR;
+  const int c = c0 + S::V * v;
+  const E* xb = x + (long long)b * T_ * C;
+  float s1[S::V], s2[S::V], K[S::V];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) s1[j] = s2[j] = K[j] = 0.f;
+  for (int j = 0; j < S::V; ++j) s1[j] = s2[j] = K[j] = 0.f;
   if (c < C) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) K[j] = __bfloat162float(xb[((c + j) / cpg) * cpg]);
-    uint4 raw[kRows];   // this thread's rows, loaded first
+    for (int j = 0; j < S::V; ++j) K[j] = to_f(xb[((c + j) / cpg) * cpg]);
+    uint4 raw[S::ROWS];   // this thread's rows, loaded first
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int t = chunk * kChunk + lr + i * kLanes;
+    for (int i = 0; i < S::ROWS; ++i) {
+      const int t = chunk * kChunk + lr + i * S::LANES;
       raw[i] = t < T_ ? __ldg(reinterpret_cast<const uint4*>(xb + (long long)t * C + c))
                       : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      if (chunk * kChunk + lr + i * kLanes >= T_) break;
-      const bf16* e = reinterpret_cast<const bf16*>(&raw[i]);
+    for (int i = 0; i < S::ROWS; ++i) {
+      if (chunk * kChunk + lr + i * S::LANES >= T_) break;
+      const E* e = reinterpret_cast<const E*>(&raw[i]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float d = __bfloat162float(e[j]) - K[j];
+      for (int j = 0; j < S::V; ++j) {
+        const float d = to_f(e[j]) - K[j];
         s1[j] += d;
         s2[j] += d * d;
       }
     }
   }
-  __shared__ float2 red[kLanes][kSlab];
+  __shared__ float2 red[S::LANES][kSlab];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) red[lr][8 * v + j] = make_float2(s1[j], s2[j]);
+  for (int j = 0; j < S::V; ++j) red[lr][S::V * v + j] = make_float2(s1[j], s2[j]);
   __syncthreads();
   const int col = threadIdx.x;
   if (col < kSlab && c0 + col < C) {
     float p1 = 0.f, p2 = 0.f;
-    for (int r = 0; r < kLanes; ++r) {
+    for (int r = 0; r < S::LANES; ++r) {
       p1 += red[r][col].x;
       p2 += red[r][col].y;
     }
@@ -464,36 +196,55 @@ resnet_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ part,
 }
 
 struct ActArgs {
-  const bf16* src;       // [B, T, C]: x (GN1) or h (GN2)
-  bf16* dst;             // [B, T, C]: silu(GN(src)) rounded
+  const void* src;       // [B, T, C]: x (GN1) or h (GN2)
+  void* dst;             // [B, T, C]: silu(GN(src)), bf16; f32: its TF32 hi
+  float* dst_lo;         //   plane (dst) and lo plane (dst_lo)
+  float* src_hi;         // f32, or null: src's own split, hi and lo planes
+  float* src_lo;         //   (x, for the 1x1 shortcut)
   const float2* part;    // [B, nrt, C]: column sums of src - K and squares
   const float* gamma;    // [C]
   const float* beta;
   const float* kb1;      // GN2: K_g = kb1[c_g] + ktemb[b][c_g]; null (GN1):
-  const bf16* ktemb;     //   K_g = src[b][0][c_g]
+  const void* ktemb;     //   K_g = src[b][0][c_g]
   int nrt, T, C, cpg;
   float eps;
 };
 
-// a = bf16(silu(GN(src))) over a 128-row x 64-channel block, GroupNorm's
-// statistics reduced from the partial sums of its groups in f64, in order.
+// Four values split (split_tf32) and stored as 16 bytes at hi and at lo.
+__device__ __forceinline__ void store_split(float* hi, float* lo, float a, float b,
+                                            float c, float d) {
+  uint32_t h[4], l[4];
+  split_tf32(a, h[0], l[0]);
+  split_tf32(b, h[1], l[1]);
+  split_tf32(c, h[2], l[2]);
+  split_tf32(d, h[3], l[3]);
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// a = silu(GN(src)) over a 128-row x 64-channel block, GroupNorm's
+// statistics reduced from the partial sums of its groups in f64, in order;
+// bf16 rounds a, f32 splits it (and src, where asked).
+template <typename E>
 __global__ void __launch_bounds__(kSAThreads)
 resnet_act_kernel(ActArgs a) {
+  using S = Slab<E>;
+  const E* src = static_cast<const E*>(a.src);
   const int t0 = blockIdx.x * kChunk, c0 = blockIdx.y * kSlab, b = blockIdx.z;
   const int C = a.C, cpg = a.cpg, tid = threadIdx.x;
   const int c_end = min(c0 + kSlab, C);
   const int g_lo = c0 / cpg, g_hi = (c_end - 1) / cpg;
   // this thread's rows (16 bytes each) are loaded first: they fly while
   // the statistics are reduced
-  const int v = tid % 8, lr = tid / 8;
-  const int c = c0 + 8 * v;
+  const int v = tid % S::VPR, lr = tid / S::VPR;
+  const int c = c0 + S::V * v;
   const long long base = (long long)b * a.T * C + c;
-  uint4 raw[kRows];
+  uint4 raw[S::ROWS];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int t = t0 + lr + i * kLanes;
+  for (int i = 0; i < S::ROWS; ++i) {
+    const int t = t0 + lr + i * S::LANES;
     raw[i] = t < a.T && c < C
-                 ? __ldg(reinterpret_cast<const uint4*>(a.src + base + (long long)t * C))
+                 ? __ldg(reinterpret_cast<const uint4*>(src + base + (long long)t * C))
                  : make_uint4(0u, 0u, 0u, 0u);
   }
   __shared__ float mean_s[kSlab + 1], rstd_s[kSlab + 1];
@@ -518,9 +269,10 @@ resnet_act_kernel(ActArgs a) {
       s2 += __shfl_xor_sync(0xffffffffu, s2, o);
     }
     if (lane == 0) {   // 2. the group's mean and rstd
-      const float K = a.kb1 != nullptr
-                          ? a.kb1[cg] + __bfloat162float(a.ktemb[(long long)b * C + cg])
-                          : __bfloat162float(a.src[(long long)b * a.T * C + cg]);
+      const float K =
+          a.kb1 != nullptr
+              ? a.kb1[cg] + to_f(static_cast<const E*>(a.ktemb)[(long long)b * C + cg])
+              : to_f(src[(long long)b * a.T * C + cg]);
       const double n = (double)a.T * cpg;
       const double m = s1 / n;
       const double var = fmax(s2 / n - m * m, 0.0);
@@ -536,26 +288,48 @@ resnet_act_kernel(ActArgs a) {
     sh[j] = a.beta[c] - mean_s[gi] * sc[j];
   }
   __syncthreads();
-  // 4. normalise, activate, round, store
+  // 4. normalise, activate, round or split, store
   if (c >= C) return;
+  const float* scv = sc + S::V * v;
+  const float* shv = sh + S::V * v;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int t = t0 + lr + i * kLanes;
+  for (int i = 0; i < S::ROWS; ++i) {
+    const int t = t0 + lr + i * S::LANES;
     if (t >= a.T) break;
-    bf16* e = reinterpret_cast<bf16*>(&raw[i]);
+    const long long off = base + (long long)t * C;
+    if constexpr (std::is_same_v<E, bf16>) {
+      bf16* e = reinterpret_cast<bf16*>(&raw[i]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      e[j] = __float2bfloat16(silu(__bfloat162float(e[j]) * sc[8 * v + j] + sh[8 * v + j]));
-    *reinterpret_cast<uint4*>(a.dst + base + (long long)t * C) = raw[i];
+      for (int j = 0; j < 8; ++j)
+        e[j] = __float2bfloat16(silu(__bfloat162float(e[j]) * scv[j] + shv[j]));
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(a.dst) + off) = raw[i];
+    } else {
+      const float* e = reinterpret_cast<const float*>(&raw[i]);
+      store_split(static_cast<float*>(a.dst) + off, a.dst_lo + off,
+                  silu(e[0] * scv[0] + shv[0]), silu(e[1] * scv[1] + shv[1]),
+                  silu(e[2] * scv[2] + shv[2]), silu(e[3] * scv[3] + shv[3]));
+      if (a.src_hi != nullptr)
+        store_split(a.src_hi + off, a.src_lo + off, e[0], e[1], e[2], e[3]);
+    }
   }
 }
 
+// The products' element type: a K step's box is one 128-byte row of
+// channels, kBoxK of them; f32 keeps every operand as two planes (hi, lo).
+template <typename E>
+struct Prod {
+  static constexpr bool kF32 = std::is_same_v<E, float>;
+  static constexpr int kBoxK = 128 / sizeof(E);
+  static constexpr int kPlanes = kF32 ? 2 : 1;
+};
+
+template <typename E>
 struct TcArgs {
   const float* bias;     // [Cout]: b1 (conv1) or b2 (conv2)
   const float* bs;       // [Cout] shortcut bias, or null
-  const bf16* temb;      // [B, Cout] (conv1; with b1, GN2's shift K2)
-  const bf16* x;         // [B, T, Cout]: the identity shortcut (conv2)
-  bf16* out;             // [B, T, Cout]: h (conv1) or the block's output
+  const E* temb;         // [B, Cout] (conv1; with b1, GN2's shift K2)
+  const E* x;            // [B, T, Cout]: the identity shortcut (conv2)
+  E* out;                // [B, T, Cout]: h (conv1) or the block's output
   float2* part;          // conv1: GN2's partial sums [B][row tiles][Cout]
   int T, Cout, cpg2;     // cpg2 = Cout / G
   int nk_main;           // K steps over the main input: 3 taps x chunks
@@ -563,28 +337,64 @@ struct TcArgs {
   int identity;          // conv2: add x (Cin == Cout)
 };
 
-template <int NWG, int BN>
+// f32: the stages whose products the tensor cores sum in one partial
+// accumulator before it is added to the f32 total (one 32-channel chunk's
+// three taps).
+constexpr int kFold = 3;
+
+template <typename E, int NWG, int BN>
 struct TcTile {
   static constexpr int BM = 64 * NWG;
-  static constexpr int kStages = 4;                   // the ring's depth
-  static constexpr int kA = BM * 128;                 // A box: BM rows x 128 B
-  static constexpr int kW = BN * 128;                 // W box: BN rows x 128 B
+  static constexpr int kA = Prod<E>::kPlanes * BM * 128;   // A box: BM rows x 128 B a plane
+  static constexpr int kW = Prod<E>::kPlanes * BN * 128;   // W box: BN rows x 128 B a plane
   static constexpr int kStage = kA + kW;
+  // the ring's depth: bf16 4 (at most 128 KB); f32 3 (192 KB at 128 x 128,
+  // one CTA an SM; 96 KB at 64 x 64, two)
+  static constexpr int kStages = Prod<E>::kF32 ? 3 : 4;
   static constexpr int kThreads = NWG * 128 + 32;     // + one producer warp
   static constexpr int kRed = NWG * 4 * BN * 8;       // conv1's column sums
   // 1024 bytes to align the ring (the 128-byte swizzle's period)
   static constexpr int kSmem = 1024 + kStages * kStage + 2 * kStages * 8 + kRed;
 };
 
+static_assert(TcTile<float, 2, 128>::kSmem <= 232448, "shared memory");
+
+// One stage's products into acc: bf16, four k16 steps; f32, 3 x TF32 over
+// four k8 steps each, the hi planes at sa and sw, the lo planes one plane
+// (BM or BN rows) on.  accumulate = 0 starts acc afresh.
+template <typename E, int BN, int BM>
+__device__ __forceinline__ void stage_products(float (&acc)[BN / 2], uint32_t sa,
+                                               uint32_t sw, int accumulate) {
+  if constexpr (!Prod<E>::kF32) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss(acc, sw128_desc(sa + 32 * ks), sw128_desc(sw + 32 * ks),
+               ks > 0 || accumulate);
+  } else {
+    const uint32_t sa_lo = sa + BM * 128, sw_lo = sw + BN * 128;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_tf32_ss(acc, sw128_desc(sa + 32 * ks), sw128_desc(sw_lo + 32 * ks),
+                    ks > 0 || accumulate);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_tf32_ss(acc, sw128_desc(sa_lo + 32 * ks), sw128_desc(sw + 32 * ks), 1);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_tf32_ss(acc, sw128_desc(sa + 32 * ks), sw128_desc(sw + 32 * ks), 1);
+  }
+}
+
 // One BM x BN output tile of a k3 convolution (+ the 1x1 shortcut) on the
 // tensor cores.  Warps 0 .. 4 NWG - 1 consume, warp 4 NWG produces.
-template <int NWG, int BN, bool kConv2>
-__global__ void __launch_bounds__(TcTile<NWG, BN>::kThreads)
+template <typename E, int NWG, int BN, bool kConv2>
+__global__ void __launch_bounds__(TcTile<E, NWG, BN>::kThreads)
 resnet_conv_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
                       const __grid_constant__ CUtensorMap tm_w,
                       const __grid_constant__ CUtensorMap tm_x,
-                      const __grid_constant__ CUtensorMap tm_ws, TcArgs a) {
-  using L = TcTile<NWG, BN>;
+                      const __grid_constant__ CUtensorMap tm_ws, TcArgs<E> a) {
+  using L = TcTile<E, NWG, BN>;
+  using P = Prod<E>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -607,8 +417,10 @@ resnet_conv_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
   __syncthreads();
 
   if (warp == NWG * 4) {
-    // producer: K step `it` = (64-channel chunk, tap), taps innermost so
-    // the three shifted boxes of a chunk follow one another in L2
+    // producer: K step `it` = (channel chunk, tap), taps innermost so the
+    // three shifted boxes of a chunk follow one another in L2.  f32's maps
+    // have the plane (hi, lo) as their outer dimension: one load brings
+    // both.
     if (lane == 0) {
       tma_prefetch_map(&tm_a);
       tma_prefetch_map(&tm_w);
@@ -619,37 +431,63 @@ resnet_conv_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
         const uint32_t full = bar_full + 8 * s;
         mbar_expect_tx(full, L::kStage);
         if (it < a.nk_main) {
-          const int chunk = it / 3, tap = it % 3;
-          tma_load_3d(sa, &tm_a, chunk * kBoxK, m0 + tap - 1, b, full);
-          tma_load_3d(sw, &tm_w, chunk * kBoxK, n0, tap, full);
+          const int k0 = (it / 3) * P::kBoxK, tap = it % 3;
+          if constexpr (P::kF32) {
+            tma_load_4d(sa, &tm_a, k0, m0 + tap - 1, b, 0, full);
+            tma_load_4d(sw, &tm_w, k0, n0, tap, 0, full);
+          } else {
+            tma_load_3d(sa, &tm_a, k0, m0 + tap - 1, b, full);
+            tma_load_3d(sw, &tm_w, k0, n0, tap, full);
+          }
         } else {
-          const int chunk = it - a.nk_main;
-          tma_load_3d(sa, &tm_x, chunk * kBoxK, m0, b, full);
-          tma_load_2d(sw, &tm_ws, chunk * kBoxK, n0, full);
+          const int k0 = (it - a.nk_main) * P::kBoxK;
+          if constexpr (P::kF32) {
+            tma_load_4d(sa, &tm_x, k0, m0, b, 0, full);
+            tma_load_3d(sw, &tm_ws, k0, n0, 0, full);
+          } else {
+            tma_load_3d(sa, &tm_x, k0, m0, b, full);
+            tma_load_2d(sw, &tm_ws, k0, n0, full);
+          }
         }
       }
     }
     return;
   }
 
-  // consumers: warpgroup wg owns rows [m0 + 64 wg, m0 + 64 wg + 64)
+  // consumers: warpgroup wg owns rows [m0 + 64 wg, m0 + 64 wg + 64).
+  // bf16 accumulates in acc; f32 in part, folded into acc every kFold
+  // stages (the header says why)
   const int wg = warp / 4;
   float acc[BN / 2];
+  float part[P::kF32 ? BN / 2 : 1];   // f32 only
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  if constexpr (P::kF32) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) part[i] = 0.f;
+  }
   for (int it = 0; it < nk; ++it) {
     const int s = it % L::kStages;
     mbar_wait(bar_full + 8 * s, (it / L::kStages) & 1);
     const uint32_t sa = base + s * L::kStage + wg * 64 * 128;
     const uint32_t sw = base + s * L::kStage + L::kA;
     wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kBoxK / 16; ++ks)
-      wgmma_ss(acc, sw128_desc(sa + 32 * ks), sw128_desc(sw + 32 * ks), 1);
+    if constexpr (P::kF32)
+      stage_products<E, BN, L::BM>(part, sa, sw, it % kFold != 0);
+    else
+      stage_products<E, BN, L::BM>(acc, sa, sw, 1);
     wgmma_commit();
     // the previous step's products are done: its stage is free
     wgmma_wait<1>();
     if (it > 0 && lane == 0) mbar_arrive(bar_empty + 8 * ((it - 1) % L::kStages));
+    if constexpr (P::kF32) {
+      if (it % kFold == kFold - 1 || it == nk - 1) {
+        wgmma_wait<0>();
+        fence_regs(part);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+      }
+    }
   }
   wgmma_wait<0>();
   fence_regs(acc);
@@ -660,7 +498,7 @@ resnet_conv_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
   const int rr = m0 + wg * 64 + 16 * w4 + lane / 4;
   const int cq = 2 * (lane % 4);
   const int T_ = a.T, Cout = a.Cout;
-  bf16* outb = a.out + (long long)b * T_ * Cout;
+  E* outb = a.out + (long long)b * T_ * Cout;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int co = n0 + 8 * j + cq;
@@ -669,12 +507,12 @@ resnet_conv_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
       float add0 = a.bias[co], add1 = a.bias[co + 1];
       float K0 = 0.f, K1 = 0.f;
       if (!kConv2) {
-        const bf16* tb = a.temb + (long long)b * Cout;
-        add0 += __bfloat162float(tb[co]);
-        add1 += __bfloat162float(tb[co + 1]);
+        const E* tb = a.temb + (long long)b * Cout;
+        add0 += to_f(tb[co]);
+        add1 += to_f(tb[co + 1]);
         const int g0 = (co / a.cpg2) * a.cpg2, g1 = ((co + 1) / a.cpg2) * a.cpg2;
-        K0 = a.bias[g0] + __bfloat162float(tb[g0]);
-        K1 = a.bias[g1] + __bfloat162float(tb[g1]);
+        K0 = a.bias[g0] + to_f(tb[g0]);
+        K1 = a.bias[g1] + to_f(tb[g1]);
       } else if (a.bs != nullptr) {
         add0 += a.bs[co];
         add1 += a.bs[co + 1];
@@ -685,15 +523,13 @@ resnet_conv_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
         if (t < T_) {
           float v0 = acc[4 * j + 2 * hh] + add0, v1 = acc[4 * j + 2 * hh + 1] + add1;
           if (kConv2 && a.identity) {
-            const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(
-                a.x + ((long long)b * T_ + t) * Cout + co);
-            v0 += __low2float(xv);
-            v1 += __high2float(xv);
+            const float2 xv = ld2(a.x + ((long long)b * T_ + t) * Cout + co);
+            v0 += xv.x;
+            v1 += xv.y;
           }
-          const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
-          *reinterpret_cast<__nv_bfloat162*>(outb + (long long)t * Cout + co) = o;
-          if (!kConv2) {   // GN2's sums of the rounded h
-            const float d0 = __low2float(o) - K0, d1 = __high2float(o) - K1;
+          const float2 o = st2(outb + (long long)t * Cout + co, v0, v1);
+          if (!kConv2) {   // GN2's sums of the stored h
+            const float d0 = o.x - K0, d1 = o.y - K1;
             s1[0] += d0;
             s2[0] += d0 * d0;
             s1[1] += d1;
@@ -735,18 +571,26 @@ resnet_conv_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
 
 // ------------------------------------------------------------ host side
 
-// A tensor map over a bf16 array of `rank` (2 or 3) dims d0 (innermost),
-// d1, d2, with a 64-element x `rows` (x 1) box and the 128-byte swizzle.
-bool encode(CUtensorMap* m, const void* p, int rank, long long d0, long long d1,
-            long long d2, int rows) {
+// A tensor map over a contiguous bf16 or f32 array of dims (dims[0]
+// innermost), with a box of `box` elements (box[0] of them one 128-byte
+// row) and the 128-byte swizzle.
+bool encode(CUtensorMap* m, const void* p, bool f32, std::initializer_list<long long> dims,
+            std::initializer_list<int> box) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
-  const cuuint64_t strides[2] = {(cuuint64_t)(d0 * 2), (cuuint64_t)(d0 * d1 * 2)};
-  const cuuint32_t box[3] = {(cuuint32_t)kBoxK, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), dims,
-            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const int rank = (int)dims.size();
+  cuuint64_t d[4], strides[3];
+  cuuint32_t bx[4], elem[4];
+  long long stride = f32 ? 4 : 2;
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (cuuint64_t)dims.begin()[i];
+    bx[i] = (cuuint32_t)box.begin()[i];
+    elem[i] = 1;
+    if (i > 0) strides[i - 1] = (cuuint64_t)stride;
+    stride *= dims.begin()[i];
+  }
+  return fn(m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            rank, const_cast<void*>(p), d, strides, bx, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -755,11 +599,11 @@ struct Maps {
   CUtensorMap a, w, x, ws;
 };
 
-template <int NWG, int BN, bool kConv2>
-cudaError_t launch_tc(const Maps& m, const TcArgs& a, int B, cudaStream_t s) {
-  using L = TcTile<NWG, BN>;
+template <typename E, int NWG, int BN, bool kConv2>
+cudaError_t launch_tc(const Maps& m, const TcArgs<E>& a, int B, cudaStream_t s) {
+  using L = TcTile<E, NWG, BN>;
   static unsigned long long configured = 0;
-  auto kern = resnet_conv_tc_kernel<NWG, BN, kConv2>;
+  auto kern = resnet_conv_tc_kernel<E, NWG, BN, kConv2>;
   cudaError_t err = opt_in(kern, L::kSmem, &configured);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T + L::BM - 1) / L::BM, (a.Cout + BN - 1) / BN, B);
@@ -767,137 +611,130 @@ cudaError_t launch_tc(const Maps& m, const TcArgs& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The tile shapes the wrapper's rule may pick (ops/cuda/resnet.py: TILES).
-bool tile_ok(int bm, int bn) {
-  return (bm == 64 && (bn == 64 || bn == 128)) || (bm == 128 && bn == 128);
+// The tile shapes the wrapper's rule may pick (ops/cuda/resnet.py: TILES,
+// TILES_F32).
+bool tile_ok(int bm, int bn, int dtype) {
+  return (bm == 64 && (bn == 64 || (bn == 128 && dtype == 1))) || (bm == 128 && bn == 128);
 }
 
-template <bool kConv2>
-cudaError_t launch_conv(int bm, int bn, const Maps& m, const TcArgs& a, int B,
+template <typename E, bool kConv2>
+cudaError_t launch_conv(int bm, int bn, const Maps& m, const TcArgs<E>& a, int B,
                         cudaStream_t s) {
-  if (bm == 64 && bn == 64) return launch_tc<1, 64, kConv2>(m, a, B, s);
-  if (bm == 64 && bn == 128) return launch_tc<1, 128, kConv2>(m, a, B, s);
-  if (bm == 128 && bn == 128) return launch_tc<2, 128, kConv2>(m, a, B, s);
+  if (bm == 64 && bn == 64) return launch_tc<E, 1, 64, kConv2>(m, a, B, s);
+  if constexpr (!Prod<E>::kF32) {
+    if (bm == 64 && bn == 128) return launch_tc<E, 1, 128, kConv2>(m, a, B, s);
+  }
+  if (bm == 128 && bn == 128) return launch_tc<E, 2, 128, kConv2>(m, a, B, s);
   return cudaErrorInvalidValue;
 }
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 long long up256(long long n) { return (n + 255) / 256 * 256; }
 
-// The scratch buffer's regions (byte offsets): bf16: the activated input
-// (a, then a2), h and the partial sums; f32: h, GN1's statistics and GN2's
-// partials.
+// The scratch buffer's regions (byte offsets): the activated input (a,
+// then a2; f32: its hi and lo planes), f32's split of x (a 1x1 shortcut
+// only), h and the partial sums.
 struct Layout {
-  long long act, h, stats, part, bytes;
+  long long act, xs, h, part, bytes;
 };
 
-Layout layout(int B, int T, int Cin, int Cout, int G, int dtype, int bm) {
+Layout layout(int B, int T, int Cin, int Cout, int dtype, int bm) {
   Layout l{};
-  if (dtype == 1) {
-    const long long parts = cdiv(T, kChunk) * Cin > cdiv(T, bm) * Cout
-                                ? cdiv(T, kChunk) * Cin
-                                : cdiv(T, bm) * Cout;
-    l.act = 0;
-    l.h = up256(2LL * B * T * (Cin > Cout ? Cin : Cout));
-    l.part = l.h + up256(2LL * B * T * Cout);
-    l.bytes = l.part + up256(8LL * B * parts);
-  } else {
-    l.h = 0;
-    l.stats = up256(4LL * B * T * Cout);
-    l.part = l.stats + up256(8LL * B * G);
-    l.bytes = l.part + up256(8LL * B * cdiv(T, kBM) * cdiv(Cout, kBN) * G);
-  }
+  const long long es = dtype == 1 ? 2 : 4;
+  const long long planes = dtype == 1 ? 1 : 2;
+  const long long rows = (long long)B * T;
+  const long long parts = cdiv(T, kChunk) * Cin > cdiv(T, bm) * Cout
+                              ? cdiv(T, kChunk) * Cin
+                              : cdiv(T, bm) * Cout;
+  l.act = 0;
+  l.xs = up256(planes * es * rows * (Cin > Cout ? Cin : Cout));
+  l.h = l.xs + (dtype == 0 && Cin != Cout ? up256(2 * 4 * rows * Cin) : 0);
+  l.part = l.h + up256(es * rows * Cout);
+  l.bytes = l.part + up256(8LL * B * parts);
   return l;
 }
 
-cudaError_t run_f32(const float* x, const float* temb, const float* g1w,
-                    const float* g1b, const float* w1, const float* b1,
-                    const float* g2w, const float* g2b, const float* w2,
-                    const float* b2, const float* ws, const float* bs,
-                    char* scratch, const Layout& l, float* out, int B, int T_,
-                    int Cin, int Cout, int G, float eps,
-                    cudaStream_t s) {
-  float* h = reinterpret_cast<float*>(scratch + l.h);
-  float* stats1 = reinterpret_cast<float*>(scratch + l.stats);
-  float* part = reinterpret_cast<float*>(scratch + l.part);
-  resnet_gn_stats_f32_kernel<<<dim3(G, B), kStatsThreads, 0, s>>>(x, stats1, T_, Cin,
-                                                                  G, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T_ + kBM - 1) / kBM, (Cout + kBN - 1) / kBN, B);
-  F32Args a{};
-  a.x = x; a.temb = temb; a.b1 = b1; a.part = part; a.stats1 = stats1;
-  a.B = B; a.T = T_; a.Cin = Cin; a.Cout = Cout; a.G = G;
-  a.eps = eps;
-  // conv1: x -> h
-  a.in = x; a.Cmain = Cin; a.w = w1; a.bias = b1; a.gamma = g1w; a.beta = g1b;
-  a.ws = nullptr; a.bs = nullptr; a.out = h;
-  resnet_conv_f32_kernel<false><<<grid, kThreads, 0, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // conv2: h -> out (+ shortcut of x)
-  a.in = h; a.Cmain = Cout; a.w = w2; a.bias = b2; a.gamma = g2w; a.beta = g2b;
-  a.ws = ws; a.bs = bs; a.out = out;
-  resnet_conv_f32_kernel<true><<<grid, kThreads, 0, s>>>(a);
-  return cudaGetLastError();
-}
-
-cudaError_t run_bf16(const bf16* x, const bf16* temb, const float* g1w,
-                     const float* g1b, const bf16* w1, const float* b1,
-                     const float* g2w, const float* g2b, const bf16* w2,
-                     const float* b2, const bf16* ws, const float* bs,
-                     char* scratch, const Layout& l, bf16* out, int B, int T_,
-                     int Cin, int Cout, int G, float eps, int bm,
-                     int bn, cudaStream_t s) {
-  bf16* act = reinterpret_cast<bf16*>(scratch + l.act);
-  bf16* h = reinterpret_cast<bf16*>(scratch + l.h);
+template <typename E>
+cudaError_t run(const E* x, const E* temb, const float* g1w, const float* g1b,
+                const E* w1, const float* b1, const float* g2w, const float* g2b,
+                const E* w2, const float* b2, const E* ws, const float* bs,
+                char* scratch, const Layout& l, E* out, int B, int T_, int Cin,
+                int Cout, int G, float eps, int bm, int bn, cudaStream_t s) {
+  constexpr bool f32 = Prod<E>::kF32;
+  constexpr int kBoxK = Prod<E>::kBoxK;
+  E* act = reinterpret_cast<E*>(scratch + l.act);
+  E* h = reinterpret_cast<E*>(scratch + l.h);
   float2* part = reinterpret_cast<float2*>(scratch + l.part);
+  const long long rows = (long long)B * T_;
+  // f32: the lo planes of a (then a2) and of x's split
+  float* act_f = reinterpret_cast<float*>(scratch + l.act);
+  float* xs = f32 && ws != nullptr ? reinterpret_cast<float*>(scratch + l.xs) : nullptr;
+  float* xs_lo = xs != nullptr ? xs + rows * Cin : nullptr;
   const int nch = (int)cdiv(T_, kChunk);
   const int nmt = (int)cdiv(T_, bm);
 
   // conv1's maps (a over [B, T, Cin], w1 [3, Cout, Cin]) and conv2's (a2
-  // over [B, T, Cout], w2 [3, Cout, Cout], x [B, T, Cin], ws [Cout, Cin])
+  // over [B, T, Cout], w2 [3, Cout, Cout], x [B, T, Cin], ws [Cout, Cin]);
+  // f32's have the plane as their outer dimension
   Maps m1, m2;
-  if (!encode(&m1.a, act, 3, Cin, T_, B, bm) || !encode(&m1.w, w1, 3, Cin, Cout, 3, bn) ||
-      !encode(&m2.a, act, 3, Cout, T_, B, bm) || !encode(&m2.w, w2, 3, Cout, Cout, 3, bn))
-    return cudaErrorNotSupported;
+  bool ok;
+  if (f32)
+    ok = encode(&m1.a, act, true, {Cin, T_, B, 2}, {kBoxK, bm, 1, 2}) &&
+         encode(&m1.w, w1, true, {Cin, Cout, 3, 2}, {kBoxK, bn, 1, 2}) &&
+         encode(&m2.a, act, true, {Cout, T_, B, 2}, {kBoxK, bm, 1, 2}) &&
+         encode(&m2.w, w2, true, {Cout, Cout, 3, 2}, {kBoxK, bn, 1, 2});
+  else
+    ok = encode(&m1.a, act, false, {Cin, T_, B}, {kBoxK, bm, 1}) &&
+         encode(&m1.w, w1, false, {Cin, Cout, 3}, {kBoxK, bn, 1}) &&
+         encode(&m2.a, act, false, {Cout, T_, B}, {kBoxK, bm, 1}) &&
+         encode(&m2.w, w2, false, {Cout, Cout, 3}, {kBoxK, bn, 1});
+  if (!ok) return cudaErrorNotSupported;
   m1.x = m1.a;
   m1.ws = m1.w;
   m2.x = m2.a;
   m2.ws = m2.w;
-  if (ws != nullptr &&
-      (!encode(&m2.x, x, 3, Cin, T_, B, bm) || !encode(&m2.ws, ws, 2, Cin, Cout, 1, bn)))
-    return cudaErrorNotSupported;
+  if (ws != nullptr) {
+    if (f32)
+      ok = encode(&m2.x, xs, true, {Cin, T_, B, 2}, {kBoxK, bm, 1, 2}) &&
+           encode(&m2.ws, ws, true, {Cin, Cout, 2}, {kBoxK, bn, 2});
+    else
+      ok = encode(&m2.x, x, false, {Cin, T_, B}, {kBoxK, bm, 1}) &&
+           encode(&m2.ws, ws, false, {Cin, Cout}, {kBoxK, bn});
+    if (!ok) return cudaErrorNotSupported;
+  }
 
-  // 1./2. GN1: partial sums, then a = silu(GN1(x))
-  resnet_stats_kernel<<<dim3(nch, (int)cdiv(Cin, kSlab), B), kSAThreads, 0, s>>>(
+  // 1./2. GN1: partial sums, then a = silu(GN1(x)) (f32: split, with x's
+  // own split beside it for a 1x1 shortcut)
+  resnet_stats_kernel<E><<<dim3(nch, (int)cdiv(Cin, kSlab), B), kSAThreads, 0, s>>>(
       x, part, T_, Cin, Cin / G);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ActArgs aa{x, act, part, g1w, g1b, nullptr, nullptr, nch, T_, Cin, Cin / G, eps};
-  resnet_act_kernel<<<dim3(nch, (int)cdiv(Cin, kSlab), B), kSAThreads, 0, s>>>(aa);
+  ActArgs aa{x, act, act_f + rows * Cin, xs, xs_lo, part, g1w, g1b, nullptr, nullptr,
+             nch, T_, Cin, Cin / G, eps};
+  resnet_act_kernel<E><<<dim3(nch, (int)cdiv(Cin, kSlab), B), kSAThreads, 0, s>>>(aa);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // 3. conv1: a -> h, GN2's partial sums
-  TcArgs c{};
+  TcArgs<E> c{};
   c.bias = b1; c.temb = temb; c.out = h; c.part = part;
   c.T = T_; c.Cout = Cout; c.cpg2 = Cout / G;
   c.nk_main = 3 * (int)cdiv(Cin, kBoxK);
-  err = launch_conv<false>(bm, bn, m1, c, B, s);
+  err = launch_conv<E, false>(bm, bn, m1, c, B, s);
   if (err != cudaSuccess) return err;
   // 4. a2 = silu(GN2(h)), into a's buffer
-  ActArgs a2{h, act, part, g2w, g2b, b1, temb, nmt, T_, Cout, Cout / G, eps};
-  resnet_act_kernel<<<dim3(nch, (int)cdiv(Cout, kSlab), B), kSAThreads, 0, s>>>(a2);
+  ActArgs a2{h, act, act_f + rows * Cout, nullptr, nullptr, part, g2w, g2b, b1, temb,
+             nmt, T_, Cout, Cout / G, eps};
+  resnet_act_kernel<E><<<dim3(nch, (int)cdiv(Cout, kSlab), B), kSAThreads, 0, s>>>(a2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // 5. conv2: a2 -> out, + the shortcut
-  c = TcArgs{};
+  c = TcArgs<E>{};
   c.bias = b2; c.bs = bs; c.x = x; c.out = out;
   c.T = T_; c.Cout = Cout; c.cpg2 = Cout / G;
   c.nk_main = 3 * (int)cdiv(Cout, kBoxK);
   c.nk_short = ws != nullptr ? (int)cdiv(Cin, kBoxK) : 0;
   c.identity = ws == nullptr;
-  return launch_conv<true>(bm, bn, m2, c, B, s);
+  return launch_conv<E, true>(bm, bn, m2, c, B, s);
 }
 
 }  // namespace
@@ -905,15 +742,17 @@ cudaError_t run_bf16(const bf16* x, const bf16* temb, const float* g1w,
 // Bytes of the scratch buffer the wrapper allocates for one call.
 extern "C" long long ptts_resnet_scratch_bytes(int B, int T, int Cin, int Cout,
                                                int G, int dtype, int bm) {
-  return layout(B, T, Cin, Cout, G, dtype, bm).bytes;
+  (void)G;
+  return layout(B, T, Cin, Cout, dtype, bm).bytes;
 }
 
-// x [B,T,Cin], temb [B,Cout] and out [B,T,Cout] in `dtype` (0 f32, 1 bf16);
-// w1 [3,Cout,Cin], w2 [3,Cout,Cout], ws [Cout,Cin] or null (Cin == Cout) in
-// `dtype`; norms and biases f32; `scratch` ptts_resnet_scratch_bytes bytes.
-// All contiguous on one device, 16-byte aligned.  bf16 takes the tile shape
-// (bm, bn) of its products; f32 ignores it.  Launches on `stream`; returns
-// the first error.
+// x [B,T,Cin], temb [B,Cout] and out [B,T,Cout] in `dtype` (0 f32, 1 bf16).
+// bf16: w1 [3,Cout,Cin], w2 [3,Cout,Cout] and ws [Cout,Cin] (or null, Cin ==
+// Cout) in bf16; f32: the same as their TF32 planes (hi, lo), [2,3,Cout,Cin],
+// [2,3,Cout,Cout], [2,Cout,Cin] (null exactly where Cin == Cout).  Norms
+// and biases f32; `scratch` ptts_resnet_scratch_bytes bytes.  All
+// contiguous on one device, 16-byte aligned.  (bm, bn) is the products'
+// tile shape (tile_ok).  Launches on `stream`; returns the first error.
 extern "C" int ptts_resnet_block(const void* x, const void* temb,
                                  const float* g1w, const float* g1b,
                                  const void* w1, const float* b1,
@@ -926,26 +765,23 @@ extern "C" int ptts_resnet_block(const void* x, const void* temb,
                                  void* stream) {
   if (B <= 0 || T <= 0 || Cin <= 0 || Cout <= 0 || G <= 0 || G > kMaxGroups ||
       Cin % G != 0 || Cout % G != 0 || Cin / G > kMaxCpg ||
-      (ws == nullptr && Cin != Cout) || Cin % 8 != 0 ||
-      Cout % 8 != 0 || (dtype == 1 && !tile_ok(bm, bn)))
+      (ws == nullptr && Cin != Cout) || (dtype == 0 && ws != nullptr && Cin == Cout) ||
+      Cin % 8 != 0 || Cout % 8 != 0 || !tile_ok(bm, bn, dtype))
     return cudaErrorInvalidValue;
   for (const void* p : {x, w1, w2, ws, (const void*)scratch, (const void*)out})
     if (reinterpret_cast<unsigned long long>(p) % 16 != 0) return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Layout l = layout(B, T, Cin, Cout, G, dtype, bm);
+  const Layout l = layout(B, T, Cin, Cout, dtype, bm);
   char* sc = static_cast<char*>(scratch);
   if (dtype == 0)
-    return run_f32(static_cast<const float*>(x), static_cast<const float*>(temb), g1w, g1b,
-                   static_cast<const float*>(w1), b1, g2w, g2b,
-                   static_cast<const float*>(w2), b2,
-                   static_cast<const float*>(ws), bs, sc, l,
-                   static_cast<float*>(out), B, T, Cin, Cout, G, eps, s);
+    return run<float>(static_cast<const float*>(x), static_cast<const float*>(temb), g1w,
+                      g1b, static_cast<const float*>(w1), b1, g2w, g2b,
+                      static_cast<const float*>(w2), b2, static_cast<const float*>(ws), bs,
+                      sc, l, static_cast<float*>(out), B, T, Cin, Cout, G, eps, bm, bn, s);
   if (dtype == 1)
-    return run_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(temb), g1w, g1b,
-                    static_cast<const bf16*>(w1), b1, g2w, g2b,
-                    static_cast<const bf16*>(w2), b2,
-                    static_cast<const bf16*>(ws), bs, sc, l,
-                    static_cast<bf16*>(out), B, T, Cin, Cout, G, eps, bm,
-                    bn, s);
+    return run<bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(temb), g1w, g1b,
+                     static_cast<const bf16*>(w1), b1, g2w, g2b,
+                     static_cast<const bf16*>(w2), b2, static_cast<const bf16*>(ws), bs,
+                     sc, l, static_cast<bf16*>(out), B, T, Cin, Cout, G, eps, bm, bn, s);
   return cudaErrorInvalidValue;
 }

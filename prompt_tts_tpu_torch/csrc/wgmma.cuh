@@ -2,9 +2,9 @@
 // tile copies into the tensor cores' unswizzled shared-memory layout and
 // its wgmma descriptors (attention.cu, attention_bwd.cu); TMA tile loads,
 // mbarriers and 128-byte-swizzled descriptors (resnet.cu, rvq.cu); the
-// bf16 wgmma instructions they run; TF32 products (rvq.cu, and the f32
-// attention kernels' 3 x TF32 tiles); thread-block cluster barriers and
-// loads (rvq.cu).  sm_90a only.
+// bf16 wgmma instructions they run; TF32 products (rvq.cu, resnet.cu's f32
+// convolutions, and the f32 attention kernels' 3 x TF32 tiles);
+// thread-block cluster barriers and loads (rvq.cu).  sm_90a only.
 //
 // The tile layout.  A [rows][D] bf16 tile (rows a multiple of 8, D of 16)
 // is kept as 8 x 8 "core matrices" of 128 contiguous bytes: element
@@ -399,6 +399,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n"
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
@@ -426,7 +437,7 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
-// ---- TF32 products (rvq.cu) ----
+// ---- TF32 products (rvq.cu, resnet.cu) ----
 //
 // wgmma's .tf32 operands are K-major only.  An f32 tile whose rows are
 // loaded as TMA boxes of 32 floats (128 bytes) with the 128-byte swizzle is
@@ -617,6 +628,41 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[0:64] (+)= A[64x8] B[8x128] in TF32, f32 accumulation: both operands
+// in shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -3,18 +3,20 @@
 Port of the TPU kernel ``prompt_tts_tpu/ops/pallas/resnet.py:
 fused_resnet_block``: the whole UNet ``ResnetBlock1D`` for inference, on
 channels-last ``[B, T, Cin]`` (f32 or bf16), with the time-embedding
-projection ``temb_proj [B, Cout]`` computed outside.  bf16 makes five
-launches a call (GroupNorm statistics; the activation pass ``silu(GN1(x))``;
+projection ``temb_proj [B, Cout]`` computed outside.  A call makes five
+launches (GroupNorm statistics; the activation pass ``silu(GN1(x))``;
 conv1 on ``wgmma``, fed by TMA; ``silu(GN2(h))``; conv2 on ``wgmma``) in
-the tile shape :func:`resnet_tiles` picks; f32 makes three on the CUDA
-cores.  ``fused_resnet_block.launches`` counts calls.
+the tile shape :func:`resnet_tiles` picks: bf16 products in bf16, f32 ones
+in 3 x TF32 (each operand split into TF32 hi and lo parts, ``hi.lo +
+lo.hi + hi.hi``; :func:`fused_resnet_block_tf32x3` is that arithmetic on
+the CPU).  ``fused_resnet_block.launches`` counts calls.
 
 The kernel takes its weights packed once (:func:`pack_resnet_weights`):
 k3 kernels as ``[3, Cout, Cin]`` and the shortcut as ``[Cout, Cin]``
-(K-major: input channels contiguous) in the activations' dtype, norms and
-biases as f32.  A CUDA tensor launches the kernel or raises; a CPU tensor
-runs :func:`fused_resnet_block_plain`, which rounds where the kernel
-rounds.
+(K-major: input channels contiguous) in the activations' dtype, for f32
+as their TF32 planes, norms and biases as f32.  A CUDA tensor launches the
+kernel or raises; a CPU tensor runs :func:`fused_resnet_block_plain`,
+which rounds where the kernel rounds.
 """
 
 import ctypes
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from prompt_tts_tpu_torch.ops.cuda import _build, opcount
+from prompt_tts_tpu_torch.ops.cuda.rvq import split_tf32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUPS = 128
@@ -32,37 +35,55 @@ MAX_CHANNELS_PER_GROUP = 256
 # The order of the packed tensors in the kernel's argument list.
 _ORDER = ("g1w", "g1b", "w1", "b1", "g2w", "g2b", "w2", "b2", "ws", "bs")
 
-# The bf16 products' tile shapes (rows BM of T, output channels BN), largest
-# first, and the SMs of the card (an H100 SXM has 132).
+# The products' tile shapes (rows BM of T, output channels BN), largest
+# first, and the SMs of the card (an H100 SXM has 132).  f32 has no 64 x
+# 128 tile: with two f32 stages in 96 KB it lost to both others at every
+# block shape and batch of the f32 tile sweep (PERF.md, the f32 tiles).
 TILES = ((128, 128), (64, 128), (64, 64))
+TILES_F32 = ((128, 128), (64, 64))
 SMS = 132
 
 
-def resnet_tiles(B: int, T: int, Cin: int, Cout: int) -> Tuple[int, int]:
-    """The bf16 products' tile shape ``(BM, BN)`` for a block: the largest
-    of :data:`TILES` whose grid (``B * ceil(T / BM) * ceil(Cout / BN)``
-    CTAs) fills at least half the SMs; where none does (small batches at
-    the deep levels), the smallest, which gives the most CTAs.  A 128 x 128
-    CTA (two consumer warpgroups, 140 KB of ring) holds an SM alone and
-    does its work in less than half the time of two 64-row CTAs, so it wins
-    from half a wave of CTAs on (PERF.md, the tile sweep).  ``Cin`` does not
+def resnet_tiles(B: int, T: int, Cin: int, Cout: int,
+                 dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
+    """The products' tile shape ``(BM, BN)`` for a block in ``dtype``: the
+    largest of :data:`TILES` (f32: :data:`TILES_F32`) whose grid (``B *
+    ceil(T / BM) * ceil(Cout / BN)`` CTAs) fills at least half the SMs;
+    where none does (small batches at the deep levels), the smallest,
+    which gives the most CTAs.  A 128 x 128 CTA (two consumer warpgroups;
+    a ring of 128 KB in bf16, 192 KB in f32) holds an SM alone and does its
+    work in less than half the time of two 64-row CTAs, so it wins from
+    half a wave of CTAs on (PERF.md, the tile sweeps).  ``Cin`` does not
     enter: it sets the depth of the K loop, not the grid."""
     del Cin
-    for bm, bn in TILES:
+    tiles = TILES_F32 if dtype == torch.float32 else TILES
+    for bm, bn in tiles:
         if 2 * B * -(-T // bm) * -(-Cout // bn) >= SMS:
             return bm, bn
-    return TILES[-1]
+    return tiles[-1]
+
+
+def split_planes(w: torch.Tensor) -> torch.Tensor:
+    """f32 ``w`` as its TF32 planes ``[2, *w.shape]``: ``hi = rna(w)``,
+    ``lo = rna(w - hi)``, the bits of ``cvt.rna.tf32.f32``
+    (``ops/cuda/rvq.py:split_tf32``, on w's device)."""
+    return torch.stack(split_tf32(w.float().contiguous()))
 
 
 def pack_resnet_weights(block, dtype: torch.dtype) -> Dict[str, object]:
     """The kernel's layout of a ``ResnetBlock1D``'s weights, on its device:
     ``w1 [3, Cout, Cin]``, ``w2 [3, Cout, Cout]``, ``ws [Cout, Cin]`` (or
-    None) in ``dtype``; ``g1w, g1b, b1, g2w, g2b, b2, bs`` in f32.  Also
+    None) in ``dtype``, for f32 as their TF32 planes ``[2, ...]``
+    (:func:`split_planes`: the kernel reads only these); ``g1w, g1b, b1,
+    g2w, g2b, b2, bs`` in f32.  Also
     ``spec`` (dtype, device, Cin, Cout), which each call checks in place of
-    the tensors, and the tensors' addresses in the kernel's order."""
+    the tensors, and the kernel's tensors' addresses in its order."""
+    def w(t):   # in dtype; f32 as its TF32 planes
+        t = t.detach().to(dtype)
+        return split_planes(t) if dtype == torch.float32 else t.contiguous()
+
     def k3(conv):   # torch [Cout, Cin, 3] -> [3, Cout, Cin]
-        return conv.conv.weight.detach().permute(2, 0, 1).to(
-            dtype).contiguous()
+        return w(conv.conv.weight.permute(2, 0, 1))
 
     def f32(t):
         return None if t is None else t.detach().float().contiguous()
@@ -73,11 +94,10 @@ def pack_resnet_weights(block, dtype: torch.dtype) -> Dict[str, object]:
         "w1": k3(block.conv1), "b1": f32(block.conv1.conv.bias),
         "g2w": f32(block.norm2.norm.weight), "g2b": f32(block.norm2.norm.bias),
         "w2": k3(block.conv2), "b2": f32(block.conv2.conv.bias),
-        "ws": None if sc is None else sc.conv.weight.detach()[..., 0].to(
-            dtype).contiguous(),
+        "ws": None if sc is None else w(sc.conv.weight[..., 0]),
         "bs": None if sc is None else f32(sc.conv.bias),
     }
-    _, cout, cin = packed["w1"].shape
+    cout, cin = packed["w1"].shape[-2:]
     for name in _ORDER:
         t = packed[name]
         if t is not None and t.data_ptr() % 16:
@@ -114,15 +134,16 @@ def fused_resnet_block(x: torch.Tensor, temb_proj: torch.Tensor,
                        eps: float) -> torch.Tensor:
     """x ``[B, T, Cin]`` (f32 or bf16), temb_proj ``[B, Cout]``, ``packed``
     from :func:`pack_resnet_weights` at x's dtype and device -> ``[B, T,
-    Cout]`` at x's dtype; bf16 in the tiles :func:`resnet_tiles` picks."""
+    Cout]`` at x's dtype, in the tiles :func:`resnet_tiles` picks."""
     return _launch(x, temb_proj, packed, groups, eps, None)
 
 
 def _launch(x: torch.Tensor, temb_proj: torch.Tensor,
             packed: Dict[str, object], groups: int, eps: float,
             tiles: Optional[Tuple[int, int]]) -> torch.Tensor:
-    """:func:`fused_resnet_block` in the bf16 tile shape ``tiles`` (one of
-    :data:`TILES`; None: :func:`resnet_tiles`'s pick).  The card tests and
+    """:func:`fused_resnet_block` in the tile shape ``tiles`` (one of
+    :data:`TILES`, f32 :data:`TILES_F32`; None: :func:`resnet_tiles`'s
+    pick).  The card tests and
     ``chip_smoke.py --resnet-tiles`` launch every tile through it."""
     if x.dtype not in _DTYPES:
         raise ValueError(f"fused_resnet_block: dtype {x.dtype} not supported")
@@ -153,10 +174,12 @@ def _launch(x: torch.Tensor, temb_proj: torch.Tensor,
     if x.data_ptr() % 16:
         raise ValueError("fused_resnet_block: x is not 16-byte aligned (the "
                          "kernel loads 16-byte vectors)")
-    bm, bn = resnet_tiles(B, T, Cin, Cout) if tiles is None else tiles
-    if (bm, bn) not in TILES:
+    bm, bn = resnet_tiles(B, T, Cin, Cout, x.dtype) if tiles is None \
+        else tiles
+    allowed = TILES_F32 if x.dtype == torch.float32 else TILES
+    if (bm, bn) not in allowed:
         raise ValueError(f"fused_resnet_block: tiles {(bm, bn)} not in "
-                         f"{TILES}")
+                         f"{allowed} ({x.dtype})")
     code = _DTYPES[x.dtype]
     lib = _lib()
     # temb_proj in x's dtype, as the TPU kernel casts it
@@ -189,10 +212,47 @@ def fused_resnet_block_plain(x: torch.Tensor, temb_proj: torch.Tensor,
     silu(GN2(h))`` before each product, ``h`` once after ``+ b1 +
     temb_proj``, and the output; GroupNorm statistics in f64, products and
     sums in f32; ``temb_proj`` taken in x's dtype, as the kernel (and the
-    TPU kernel) takes it.  The plain version of :func:`fused_resnet_block`
-    (its CPU path and the card's reference); the model's own CPU path is
-    ``ops/resnet.py:resnet_block_plain``."""
+    TPU kernel) takes it; f32 weights as the sum of their TF32 planes,
+    within 2^-21 of the module's.  The plain version of
+    :func:`fused_resnet_block` (its CPU path and the card's reference); the
+    model's own CPU path is ``ops/resnet.py:resnet_block_plain``."""
+    return _fused(x, temb_proj, packed, groups, eps, _mm_f32)
+
+
+def fused_resnet_block_tf32x3(x: torch.Tensor, temb_proj: torch.Tensor,
+                              packed: Dict[str, object], groups: int,
+                              eps: float) -> torch.Tensor:
+    """The f32 kernel's arithmetic on the CPU: :func:`fused_resnet_block_plain`
+    with every product in 3 x TF32 as the kernel takes it, on the packed
+    weights' TF32 planes and a, a2 and x split the same way
+    (``split_tf32``): ``(hi.lo + lo.hi) + hi.hi``, each product of two
+    TF32 values exact in f32, f32 sums (on the card, under TF32 off).  The kernel adds the same terms in another
+    order (a 32-channel chunk's three at a time)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"fused_resnet_block_tf32x3: f32 only, not "
+                         f"{x.dtype}")
+    return _fused(x, temb_proj, packed, groups, eps, _mm_tf32x3)
+
+
+def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a [..., C] @ w [Cout, C]^T`` in f32; an f32 ``w`` is its TF32
+    planes ``[2, Cout, C]``, taken as their sum."""
+    if w.dtype == torch.float32:
+        w = w[0] + w[1]
+    return a.float() @ w.float().t()
+
+
+def _mm_tf32x3(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The same in 3 x TF32, ``w [2, Cout, C]`` the weights' TF32 planes."""
+    ah, al = split_tf32(a)
+    return (ah @ w[1].t() + al @ w[0].t()) + ah @ w[0].t()
+
+
+def _fused(x, temb_proj, packed, groups, eps, mm):
+    """The block on ``packed`` with the products ``mm(a, w)`` over its
+    packed weights (a k3 kernel's tap s is ``w.select(-3, s)``)."""
     dt = x.dtype
+    w1, w2, ws = packed["w1"], packed["w2"], packed["ws"]
 
     def act(v, gamma, beta):   # silu(GN(v)) rounded, v [B, T, C]
         B, T, C = v.shape
@@ -210,15 +270,13 @@ def fused_resnet_block_plain(x: torch.Tensor, temb_proj: torch.Tensor,
     def conv3(a, w):   # "same" k3, zero edges: [B, T, C] -> f32 [B, T, Cout]
         T = a.shape[1]
         ap = F.pad(a.float(), (0, 0, 1, 1))
-        w = w.float()
-        return sum(ap[:, s:s + T] @ w[s].t() for s in range(3))
+        return sum(mm(ap[:, s:s + T], w.select(-3, s)) for s in range(3))
 
-    h = (conv3(act(x, packed["g1w"], packed["g1b"]), packed["w1"])
+    h = (conv3(act(x, packed["g1w"], packed["g1b"]), w1)
          + packed["b1"] + temb_proj.to(dt).float()[:, None, :]).to(dt)
-    out = conv3(act(h, packed["g2w"], packed["g2b"]), packed["w2"]) + packed[
-        "b2"]
-    if packed["ws"] is None:
+    out = conv3(act(h, packed["g2w"], packed["g2b"]), w2) + packed["b2"]
+    if ws is None:
         out = out + x.float()
     else:
-        out = out + (x.float() @ packed["ws"].float().t() + packed["bs"])
+        out = out + (mm(x, ws) + packed["bs"])
     return out.to(dt)

@@ -10,6 +10,7 @@ so run them there without ``tests/conftest.py`` (which imports jax):
         tests/test_torch_cuda.py -q
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -34,15 +35,15 @@ from prompt_tts_tpu_torch.ops.cuda.lstm import (
     lstm_recurrence_t_plain,
 )
 from prompt_tts_tpu_torch.ops.cuda.resnet import (
-    TILES, _launch as resnet_launch, fused_resnet_block,
-    fused_resnet_block_plain,
+    TILES, TILES_F32, _launch as resnet_launch, fused_resnet_block,
+    fused_resnet_block_plain, split_planes,
 )
 from prompt_tts_tpu_torch.ops.resnet import (
     resnet_block, resnet_block_plain,
 )
 from prompt_tts_tpu_torch.ops.cuda.rvq import (
     CLUSTERS, RvqPlan, _launch as rvq_launch, index_contract, rvq_encode,
-    rvq_encode_plain,
+    rvq_encode_plain, split_tf32,
 )
 from prompt_tts_tpu_torch.pipeline import (
     CodecRunner, Synthesizer, full_f32, latents_to_codes, random_init_,
@@ -77,6 +78,7 @@ LSTM_TOL = 1e-5
 # the difference in h passes through GN2 and conv2 and the output's own
 # rounding.
 RESNET_TOL_F32, RESNET_TOL_BF16 = 1e-4, 3e-2
+RESNET_TOL_F32_DEEP = 4e-6   # relative; chip_smoke.py states why
 # The bf16 kernel vs fused_resnet_block_plain, which rounds a, h, a2 and the
 # output where the kernel does: GroupNorm statistics in the last f32 bits
 # and f32 sums in another order can move a value across a bf16 rounding
@@ -479,6 +481,115 @@ def test_resnet_kernel_is_deterministic(dev):
     assert torch.equal(a, b)
 
 
+def _assert_f32_close(out, ref):
+    err = (out - ref).abs().max().item()
+    assert err <= RESNET_TOL_F32 * max(1.0, ref.abs().max().item()), err
+
+
+@pytest.mark.parametrize("T,cin,cout", [(113, 768, 768), (113, 1536, 768),
+                                        (225, 1536, 768), (900, 256, 256),
+                                        (900, 512, 256)])
+def test_resnet_f32_kernel_at_batch_32(dev, T, cin, cout):
+    """``cli.evaluate``'s batch of 32 in f32 (3 x TF32 on the tensor cores,
+    the 128 x 128 tile): the deep levels with the 1536 -> 768 shortcut and
+    T = 900, against the module arithmetic (TF32 off) and against
+    fused_resnet_block_plain on the same packed weights."""
+    block, x, temb = _resnet_case(dev, 32, T, cin, cout, torch.float32)
+    before = fused_resnet_block.launches
+    with torch.no_grad(), full_f32():
+        tp = block.time_emb_proj(F.silu(temb))
+        out = resnet_block(block, x, temb)
+        fused = fused_resnet_block_plain(x, tp, block.kernel_weights, 32,
+                                         block.norm1.norm.eps)
+        ref = resnet_block_plain(block, x, tp)
+    torch.cuda.synchronize()
+    assert fused_resnet_block.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (32, T, cout)
+    _assert_f32_close(out, ref)
+    _assert_f32_close(out, fused)
+
+
+@pytest.mark.parametrize("T", [113, 225])
+def test_resnet_f32_kernel_deepest_k_against_f64(dev, T):
+    """The f32 kernel at the deepest K (Cin = 1536 -> 768, the 1x1
+    shortcut) and B = 32 against the block in f64, within
+    RESNET_TOL_F32_DEEP of max(1, max |ref|).  The tensor cores truncate
+    each k8 step's sum into the accumulator, so the kernel folds a partial
+    accumulator into an f32 total every kFold stages (csrc/resnet.cu): on
+    an H100, 6.6e-7 and 7.6e-7 of max |ref| on chip_smoke.py's inputs.
+    One accumulator over the K loop reads 1.6e-5 and 2.0e-5, which misses
+    this limit and passes RESNET_TOL_F32."""
+    block, x, temb = _resnet_case(dev, 32, T, 1536, 768, torch.float32)
+    with torch.no_grad():
+        tp = block.time_emb_proj(F.silu(temb))
+        out = resnet_block(block, x, temb)
+        ref = resnet_block_plain(copy.deepcopy(block).double(), x.double(),
+                                 tp.double())
+    rel = ((out.double() - ref).abs().max().item()
+           / max(1.0, ref.abs().max().item()))
+    assert rel <= RESNET_TOL_F32_DEEP, rel
+
+
+@pytest.mark.parametrize("tiles", TILES_F32)
+@pytest.mark.parametrize("B,T,cin,cout", [(3, 150, 192, 320),
+                                          (2, 70, 320, 320),
+                                          (2, 37, 128, 96)])
+def test_resnet_f32_kernel_every_tile(dev, tiles, B, T, cin, cout):
+    """Every f32 tile shape on ragged shapes: T no tile multiple, Cout =
+    320 or 96 (no multiple of 64 or 128), groups of 6 and 10 channels
+    straddling the 32-channel boxes of a K step and the 4-channel vectors
+    of the activation pass, the 1x1 and the identity shortcut."""
+    block, x, temb = _resnet_case(dev, B, T, cin, cout, torch.float32)
+    before = fused_resnet_block.launches
+    with torch.no_grad(), full_f32():
+        tp = block.time_emb_proj(F.silu(temb))
+        out = resnet_launch(x, tp, block.kernel_weights, 32,
+                            block.norm1.norm.eps, tiles)
+        fused = fused_resnet_block_plain(x, tp, block.kernel_weights, 32,
+                                         block.norm1.norm.eps)
+    torch.cuda.synchronize()
+    assert fused_resnet_block.launches == before + 1
+    _assert_f32_close(out, fused)
+
+
+def test_resnet_f32_kernel_is_deterministic_with_a_shortcut(dev):
+    """The f32 path at B=8 with the 1x1 shortcut: the same bits twice."""
+    block, x, temb = _resnet_case(dev, 8, 225, 1536, 768, torch.float32)
+    with torch.no_grad():
+        a = resnet_block(block, x, temb)
+        b = resnet_block(block, x, temb)
+    assert torch.equal(a, b)
+
+
+def test_resnet_f32_packed_weights_are_tf32_rna_planes(dev):
+    """The f32 path packs its weights as their TF32 planes only (``hi =
+    rna(w)``, ``lo = rna(w - hi)``, the low 13 bits zero), with the bits
+    ``split_tf32`` gives on the CPU: from the module's weights of a block
+    with a shortcut, and on values whose dropped 13 bits are a tie (0x1000)
+    or just either side of one, of both signs and over the exponents."""
+    block, _, _ = _resnet_case(dev, 1, 8, 64, 32, torch.float32)
+    packed = block.kernel_weights
+    for name, w in (("w1", block.conv1.conv.weight.permute(2, 0, 1)),
+                    ("w2", block.conv2.conv.weight.permute(2, 0, 1)),
+                    ("ws", block.conv_shortcut.conv.weight[..., 0])):
+        got = packed[name]
+        want = torch.stack(split_tf32(w.detach().cpu().contiguous()))
+        assert got.shape == want.shape, name
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)), name
+        assert not bool((got.view(torch.int32) & 0x1FFF).any()), name
+    g = torch.Generator().manual_seed(1)
+    bits = torch.randint(0x0A000000, 0x74000000, (3, 4096), generator=g,
+                         dtype=torch.int64)   # |x| from 1e-32 to 1e32
+    low = torch.tensor([0x1000, 0x0FFF, 0x1001])[:, None]
+    bits = ((bits & ~0x1FFF) | low).flatten()
+    sign = torch.randint(0, 2, bits.shape, generator=g) << 31
+    x = (bits | sign).to(torch.int32).view(torch.float32)
+    got = split_planes(x.to(dev)).cpu()
+    assert torch.equal(got.view(torch.int32),
+                       torch.stack(split_tf32(x)).view(torch.int32))
+
+
 def test_resnet_dispatch_keeps_autograd_and_checks(dev):
     """With a gradient the module arithmetic runs (the kernel has no
     backward); the wrapper refuses what the kernel does not take."""
@@ -499,6 +610,8 @@ def test_resnet_dispatch_keeps_autograd_and_checks(dev):
                 "do not fit": (x[..., :32].contiguous(), tp, packed)}.items():
             with pytest.raises(ValueError, match=match):
                 fused_resnet_block(*args, groups=32, eps=1e-5)
+        with pytest.raises(ValueError, match="not in"):   # no f32 64 x 128
+            resnet_launch(x, tp, packed, 32, 1e-5, (64, 128))
     assert fused_resnet_block.launches == before
 
 

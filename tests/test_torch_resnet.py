@@ -12,8 +12,8 @@ flax and torch take two passes.
 The CUDA kernel's plain version (``ops/cuda/resnet.py:
 fused_resnet_block_plain``, on the packed weights, rounding where the
 kernel rounds) is held to the JAX kernel in f32 and in bf16, and to the
-module arithmetic in bf16; the bf16 kernel's tile rule is checked at every
-block shape of the flagship UNet.
+module arithmetic in bf16; the kernel's tile rule, bf16 and f32, is checked
+at every block shape of the flagship UNet.
 """
 
 import importlib.util
@@ -34,7 +34,7 @@ from prompt_tts_tpu_torch.convert import model_state_from_jax
 from prompt_tts_tpu_torch.models.layers import cast_compute_
 from prompt_tts_tpu_torch.models.unet1d import ResnetBlock1D
 from prompt_tts_tpu_torch.ops.cuda.resnet import (
-    SMS, TILES, fused_resnet_block as cuda_resnet_block,
+    SMS, TILES, TILES_F32, fused_resnet_block as cuda_resnet_block,
     fused_resnet_block_plain, pack_resnet_weights, resnet_tiles,
 )
 from prompt_tts_tpu_torch.ops.resnet import resnet_block, resnet_block_plain
@@ -255,28 +255,36 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("B", [1, 4, 8])
-def test_resnet_tiles_at_every_unet_shape(B):
+@pytest.mark.parametrize("B,dtype", [
+    *(pytest.param(B, torch.bfloat16, id=str(B)) for B in (1, 4, 8, 32)),
+    *(pytest.param(B, torch.float32, id=f"f32-{B}") for B in (1, 4, 8, 32))])
+def test_resnet_tiles_at_every_unet_shape(B, dtype):
     """At every block shape of the flagship UNet: a tile the kernel has (BM
     a multiple of wgmma's 64 rows, one or two warpgroups; BN a multiple of
-    64, one 128-byte TMA row of K a box), whose grid fills at least half the
-    card's SMs with no larger tile doing so, or, where no tile's grid does,
-    the tile with the most CTAs (the rule PERF.md states)."""
+    64, one 128-byte TMA row of K a box) among the dtype's candidates
+    (f32: 128 x 128 or 64 x 64), whose grid fills at least half the card's
+    SMs with no larger candidate doing so, or, where no candidate's grid
+    does, the candidate with the most CTAs (the rule PERF.md states)."""
     from prompt_tts_tpu_torch.config import ModelConfig
     shapes = _chip_smoke().resnet_shapes(ModelConfig())
     assert len(shapes) == 22
+    tiles = TILES_F32 if dtype == torch.float32 else TILES
+    assert set(tiles) <= set(TILES)
     for _, T, cin, cout in shapes:
-        bm, bn = resnet_tiles(B, T, cin, cout)
-        assert (bm, bn) in TILES and bm in (64, 128) and bn in (64, 128)
+        bm, bn = resnet_tiles(B, T, cin, cout, dtype)
+        assert (bm, bn) in tiles and bm in (64, 128) and bn in (64, 128)
 
         def ctas(t):
             return B * -(-T // t[0]) * -(-cout // t[1])
         if 2 * ctas((bm, bn)) < SMS:
-            assert all(2 * ctas(t) < SMS for t in TILES)
-            assert ctas((bm, bn)) == max(ctas(t) for t in TILES)
+            assert all(2 * ctas(t) < SMS for t in tiles)
+            assert ctas((bm, bn)) == max(ctas(t) for t in tiles)
         else:   # no larger tile fills half the SMs
-            for t in TILES[:TILES.index((bm, bn))]:
+            for t in tiles[:tiles.index((bm, bn))]:
                 assert 2 * ctas(t) < SMS
+    if B == 32:   # cli.evaluate's batch: the largest tile everywhere
+        assert {resnet_tiles(B, T, cin, cout, dtype)
+                for _, T, cin, cout in shapes} == {(128, 128)}
 
 
 _REFUSALS = {
