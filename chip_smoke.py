@@ -123,6 +123,15 @@ Phases, each printed as one JSON object per line:
   14. export: ``cli.export_checkpoint`` of the flagship's checkpoint, read
      back bit for bit, then ``cli.synthesize --ref_ckpt`` against an
      in-process ``Synthesizer`` on the checkpoint's state, bit for bit.
+  14b. aot: the deployment export (``aot.export_synthesis``): the
+     flagship bf16 at batch 8, DDIM-50, int16 PCM, and the prompt family
+     at batch 4, DPM-25 CFG 3, each exported (condition, step and finish
+     programs), saved, loaded in a fresh ``aot.SynthesisProgram`` and held
+     against the live ``Synthesizer`` on the same x_T: PCM and codes bit
+     for bit, launches of every kernel equal; a corrupted magic and an
+     unknown version refused; export, save and load seconds, artifact MB,
+     both calls' walls, and the host microseconds a call of kernels #1
+     and #6 through their ``torch.library`` op against the launcher.
   15. ddpm: ``ddpm_sample`` with the flagship's widths at one layer a
      block (``DDPM_LAYERS_PER_BLOCK``), 4 requests, bf16,
      1,000 steps and the decode (ms a step, x real time, the idle share
@@ -166,7 +175,7 @@ Then the phases' wall seconds (``phase_walls_s``), one
 before any result.
 
     python3 chip_smoke.py --lstm-times --rvq-times --resnet-times \
-        --resnet-tiles --synth-times --remat-times --f32-times
+        --resnet-tiles --synth-times --remat-times --f32-times --synth-bits
 
 runs timings alone, any of them, after the build: both LSTM kernels at the
 paths' three shapes beside cuDNN, the RVQ encode at [32, 900], [4, 225]
@@ -176,9 +185,11 @@ block shape (per launch, the library sequence, the wrapper's host cost),
 its tile shapes at B=8 and B=1 (and f32's at B=32, 8, 4 and 1), the
 two synthesis slices' warm walls
 with a profile, and the flagship train step plain, under the port's remat
-and under two renderings of JAX's remat policy, and the f32 paths at
-B=32 (``f32_times``).  ``--lstm-times``,
-``--resnet-times`` and ``--synth-times`` use only what earlier versions of
+and under two renderings of JAX's remat policy, the f32 paths at
+B=32 (``f32_times``), and the flagship's live DDIM-50 batch-8 PCM and
+codes as sha256 digests with their walls (``--synth-bits``).
+``--lstm-times``, ``--resnet-times``, ``--synth-times`` and
+``--synth-bits`` use only what earlier versions of
 the package have too, so that two checkouts can be timed in one call
 (``--rvq-times`` needs ``ops/cuda/opcount.py``, which came with the
 trainer's remat).
@@ -195,6 +206,7 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tarfile
@@ -3858,6 +3870,219 @@ def phase_export(smi, tmp, ckpt):
     return launches
 
 
+# the deployment export: the flagship artifact's batch, the prompt
+# family's (DPM-25, CFG 3)
+AOT_BATCH, AOT_PROMPT_BATCH = 8, 4
+
+
+def op_host_us(smi, n=300):
+    """Host microseconds a call of kernels #1 and #6 through their
+    ``torch.library`` op and through the launcher the eager path calls, at
+    the cheapest call of a synthesis (the deepest level at batch 1, bf16:
+    attention T=113, 8 heads of 96; the resnet block T=113, 768 -> 768),
+    where the host sets the pace: the wall of ``n`` back-to-back calls,
+    enqueue only (the card syncs after), the two routes in turns."""
+    import torch
+    import torch.nn.functional as F
+    from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
+    from prompt_tts_tpu_torch.ops.cuda.resnet import (
+        fused_resnet_block, packed_tensors,
+    )
+    g = torch.Generator().manual_seed(17)
+    q, k, v = (torch.randn(1, 113, 8, 96, generator=g).to(
+        "cuda", torch.bfloat16) for _ in range(3))
+    block = _resnet_block(768, 768, torch.bfloat16, g)
+    x = torch.randn(1, 113, 768, generator=g).to("cuda", torch.bfloat16)
+    temb = torch.randn(1, 1024, generator=g).to("cuda")
+    norm = block.norm1.norm
+    with torch.no_grad():
+        tp = block.time_emb_proj(F.silu(temb))
+    pk = block.kernel_weights
+    planes = packed_tensors(pk)
+    calls = {
+        "attention": {
+            "launcher": lambda: flash_attention(q, k, v),
+            "op": lambda: torch.ops.ptts.flash_attention(q, k, v, None,
+                                                         False)},
+        "resnet": {
+            "launcher": lambda: fused_resnet_block(
+                x, tp, pk, norm.num_groups, norm.eps),
+            "op": lambda: torch.ops.ptts.fused_resnet_block(
+                x, tp, *planes, norm.num_groups, norm.eps)}}
+    out = {}
+    with torch.no_grad():
+        for kernel, routes in calls.items():
+            samples = {r: [] for r in routes}
+            for order in (("launcher", "op"), ("op", "launcher")):
+                for r in order:
+                    fn = routes[r]
+                    for _ in range(20):
+                        fn()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(n):
+                        fn()
+                    samples[r].append((time.perf_counter() - t0) / n * 1e6)
+                    torch.cuda.synchronize()
+            out[kernel] = {r: statistics.mean(v) for r, v in samples.items()}
+            out[kernel]["turns_us"] = samples
+    return out
+
+
+def _aot_case(smi, tmp, name, synth, texts, kw_live, kw_prog):
+    """Export ``synth`` at ``len(texts)`` (pcm16), save, load in a fresh
+    ``SynthesisProgram``, and hold one artifact call against one live call
+    (warm, same seed): bits and launch counts.  Returns the record and the
+    artifact call's launches."""
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch import aot
+    path = os.path.join(tmp, f"{name}.ptts")
+    header = aot.export_synthesis(synth, len(texts), path, pcm16=True)
+    mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    prog = aot.SynthesisProgram(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    runs = {"artifact": lambda: prog.synthesize(texts, seed=0,
+                                                return_codes=True, **kw_prog),
+            "live": lambda: synth.synthesize(texts, seed=0, pcm16=True,
+                                             return_codes=True, **kw_live)}
+    out, walls, launches = {}, {}, {}
+    for key, run in runs.items():
+        run()                                    # warm
+        zero_counts()
+        t0 = time.perf_counter()
+        out[key] = run()                         # host numpy: synced
+        walls[key] = time.perf_counter() - t0
+        launches[key] = counts()
+    (pcm, codes), (pcm_l, codes_l) = out["artifact"], out["live"]
+    hot = ("attention_fwd", "resnet", "lstm_t")
+    checks = {
+        "pcm_bit_equal": bool(pcm.dtype == np.int16
+                              and np.array_equal(pcm, pcm_l)),
+        "codes_bit_equal": bool(np.array_equal(codes, codes_l)),
+        "launches_equal": launches["artifact"] == launches["live"],
+        "launches_nonzero": all(launches["artifact"][k] for k in hot),
+        "shape": pcm.shape == (len(texts), int(AUDIO_S * SAMPLE_RATE)),
+    }
+    rec = {"checks": checks, "export_s": header["seconds"]["export"],
+           "save_s": header["seconds"]["save"], "load_s": load_s,
+           "artifact_mb": mb, "sections_mb": {
+               k: v / 1e6 for k, v in header["sections"].items()},
+           "wall_s": walls, "launches": launches["artifact"],
+           "live_launches": launches["live"]}
+    del prog
+    os.unlink(path)
+    return rec, launches["artifact"]
+
+
+def _refusals(tmp, path_header):
+    """A corrupted magic and an unknown format version raise."""
+    from prompt_tts_tpu_torch import aot
+    header = dict(path_header, version=99)
+    hdr = json.dumps(header).encode()
+    cases = {"magic": b"XXXXXXXX" + struct.pack("<I", len(hdr)) + hdr,
+             "version": b"PTTSPT01" + struct.pack("<I", len(hdr)) + hdr}
+    refused = {}
+    for name, data in cases.items():
+        bad = os.path.join(tmp, f"bad_{name}.ptts")
+        with open(bad, "wb") as f:
+            f.write(data)
+        try:
+            aot.load_synthesis(bad)
+            refused[name] = False
+        except ValueError as e:
+            refused[name] = ("not a ptts torch AOT" in str(e) if name ==
+                             "magic" else "version 99" in str(e))
+    return refused
+
+
+def phase_aot(smi, tmp):
+    """The deployment export (``aot.py``) at full width: the flagship bf16
+    ``TTSSingleSpeaker`` at batch 8, DDIM-50, int16 PCM, and the prompt
+    family at batch 4, DPM-25 CFG 3 (a mid-scale constant prompt), each
+    exported, saved, loaded in a fresh ``SynthesisProgram`` and held bit
+    for bit, and launch for launch, against the live ``Synthesizer`` on
+    the same x_T; the loader's refusals; the ops' host cost against the
+    launchers'.  Returns the flagship artifact call's launches."""
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch import aot
+    from prompt_tts_tpu_torch.config import Config
+    from prompt_tts_tpu_torch.pipeline import Synthesizer, codes_to_latents
+    host = op_host_us(smi)
+    texts = (TEXTS * AOT_BATCH)[:AOT_BATCH]
+    synth = Synthesizer(device="cuda", dtype=torch.bfloat16,
+                        num_inference_steps=STEPS)
+    flag, launches = _aot_case(smi, tmp, "flagship", synth, texts, {}, {})
+    del synth
+    cfg = prompt_config()
+    codes = np.full((AOT_PROMPT_BATCH, cfg.in_channels, cfg.prompt_frames),
+                    512, np.int32)
+    lat = codes_to_latents(torch.from_numpy(codes)).numpy()
+    psynth = Synthesizer(config=Config(model=cfg), device="cuda",
+                         dtype=torch.bfloat16,
+                         num_inference_steps=PROMPT_STEPS, sampler="dpm",
+                         guidance_scale=GUIDANCE)
+    prompt, _ = _aot_case(smi, tmp, "prompt", psynth,
+                          texts[:AOT_PROMPT_BATCH], {"prompt_codes": codes},
+                          {"prompt_latents": lat})
+    del psynth
+    refused = _refusals(tmp, {"device": "cuda", "sections": {}})
+    # the ops' extra host time over a DDIM-50 synthesis's calls, against
+    # the live batch-8 wall
+    extra_ms = sum((host[k]["op"] - host[k]["launcher"]) * flag["launches"][
+        c] for k, c in (("attention", "attention_fwd"),
+                        ("resnet", "resnet"))) / 1e3
+    rec = {"phase": "aot", "what": f"aot.export_synthesis + load: flagship "
+           f"bf16 B={AOT_BATCH} DDIM-{STEPS} pcm16; prompt family "
+           f"B={AOT_PROMPT_BATCH} DPM-{PROMPT_STEPS} CFG {GUIDANCE}",
+           "flagship": flag, "prompt": prompt, "refused": refused,
+           "op_host_us": {k: {r: v[r] for r in ("launcher", "op")}
+                          for k, v in host.items()},
+           "op_host_turns_us": {k: v["turns_us"] for k, v in host.items()},
+           "op_extra_ms_per_synthesis": extra_ms,
+           "op_extra_share_of_live_wall": extra_ms / 1e3
+           / flag["wall_s"]["live"], "card": smi}
+    emit(rec)
+    checks = {**{f"flagship_{k}": v for k, v in flag["checks"].items()},
+              **{f"prompt_{k}": v for k, v in prompt["checks"].items()},
+              **{f"refused_{k}": v for k, v in refused.items()}}
+    if not all(checks.values()):
+        raise AssertionError(f"aot checks failed: {checks}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def synth_bits(smi):
+    """``--synth-bits``: the live flagship synthesis, bf16 DDIM-50 at batch
+    8, int16 PCM, seed 0: sha256 of its PCM and codes (three warm calls,
+    which must agree) and their walls, through ``Synthesizer`` alone, so
+    that two versions of the package can be compared in one call."""
+    import hashlib
+    import torch
+    from prompt_tts_tpu_torch.pipeline import Synthesizer
+    texts = (TEXTS * AOT_BATCH)[:AOT_BATCH]
+    synth = Synthesizer(device="cuda", dtype=torch.bfloat16,
+                        num_inference_steps=STEPS)
+    synth.synthesize(texts, seed=0, pcm16=True)
+    digests, walls = set(), []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pcm, codes = synth.synthesize(texts, seed=0, pcm16=True,
+                                      return_codes=True)
+        walls.append(time.perf_counter() - t0)
+        digests.add((hashlib.sha256(pcm.tobytes()).hexdigest(),
+                     hashlib.sha256(codes.tobytes()).hexdigest()))
+    (pcm_sha, codes_sha), = digests
+    emit({"phase": "synth_bits", "what": f"Synthesizer.synthesize "
+          f"{AOT_BATCH} x {AUDIO_S:.0f} s, DDIM-{STEPS} bf16, pcm16, seed 0",
+          "pcm_sha256": pcm_sha, "codes_sha256": codes_sha,
+          "wall_s": walls, "card": smi})
+
+
 def _near_boundary(latents, tol):
     """Where a latent is within ``tol`` of a code rounding boundary."""
     import torch
@@ -4852,7 +5077,8 @@ def main():
              "--resnet-tiles": resnet_tile_sweep,
              "--synth-times": synth_times,
              "--remat-times": remat_times,
-             "--f32-times": f32_times}
+             "--f32-times": f32_times,
+             "--synth-bits": synth_bits}
     if any(a not in modes for a in sys.argv[1:]):
         raise SystemExit(f"chip_smoke: arguments are any of {list(modes)}")
     t_script = time.perf_counter()
@@ -4901,6 +5127,8 @@ def main():
         evaluated = timed(phase_evaluate)(smi, codes_tar, ckpt,
                                           prompt_ckpt, prompt_cfg, batch)
         exported = timed(phase_export)(smi, tmp, ckpt)
+    with tempfile.TemporaryDirectory() as tmp:
+        aot_art = timed(phase_aot)(smi, tmp)
     ddpm = timed(phase_ddpm)(smi)
     codec_bf16 = timed(phase_codec_bf16)(smi)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4926,7 +5154,7 @@ def main():
                  "synthesize_long": long_cli[k],
                  "prompt_serve": prompt_served[k], "remat_train": remat[k],
                  "train_cli_extras": extras[k], "evaluate": evaluated[k],
-                 "export": exported[k], "ddpm": ddpm[k],
+                 "export": exported[k], "aot": aot_art[k], "ddpm": ddpm[k],
                  "profile": profiled[k], "ddp_nccl": ddp_nccl[k],
                  "ddp_two_ranks": ddp_ranks[k], "codec_bf16": codec_bf16[k],
                  "unet_variants": variants[k]} for k in KERNELS}

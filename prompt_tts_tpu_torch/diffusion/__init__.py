@@ -1,1 +1,2 @@
-"""Diffusion math: the linear schedule and the DDIM sampler."""
+"""Diffusion math: the linear schedule and the DDIM, DPM-Solver++(2M) and
+ancestral DDPM samplers, each sampler step a function of its own."""

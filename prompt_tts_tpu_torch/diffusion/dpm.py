@@ -8,7 +8,11 @@ first and final steps.  The per-step coefficients are computed on the host
 in f64 (lambda loses precision in f32), including the final step where
 lambda = +inf, and uploaded once as f32 tensors; the loop body is tensor
 math at static shapes with no host sync between steps.  The state x stays
-f32 whatever the denoiser's dtype.
+f32 whatever the denoiser's dtype.  One update is :func:`dpm_step`, on the
+step's f32 table entries (:func:`dpm_step_tables`), which the loop here,
+``Synthesizer``'s step program and an exported step program (``aot.py``)
+all call; the first step is first order by its table (``ext = 0``, and
+the zero ``x0_prev`` it multiplies).
 """
 
 import numpy as np
@@ -47,6 +51,28 @@ def dpm_tables(alphas_cumprod: np.ndarray, num_inference_steps: int):
     return ts, c_x, c_d, ext
 
 
+def dpm_step_tables(alphas_cumprod: np.ndarray, num_inference_steps: int):
+    """``(ts, coef)``: the descending timesteps and each step's f32 table
+    entries ``coef [N, 4]`` = (``acp_t``, ``c_x``, ``c_d``, ``ext``)."""
+    acp = np.asarray(alphas_cumprod, dtype=np.float32)
+    ts, c_x, c_d, ext = dpm_tables(acp, num_inference_steps)
+    coef = np.stack([acp[ts], c_x.astype(np.float32),
+                     c_d.astype(np.float32), ext.astype(np.float32)], 1)
+    return ts.tolist(), coef
+
+
+def dpm_step(x: torch.Tensor, eps: torch.Tensor, x0_prev: torch.Tensor,
+             acp_t: torch.Tensor, cx: torch.Tensor, cd: torch.Tensor,
+             ex: torch.Tensor, clip_sample: bool = True):
+    """One DPM-Solver++(2M) update of the f32 state ``x`` from the f32
+    ``eps`` and the previous step's x0 estimate: ``(x_next, x0)``."""
+    x0 = (x - torch.sqrt(1.0 - acp_t) * eps) / torch.sqrt(acp_t)
+    if clip_sample:
+        x0 = x0.clamp(-1.0, 1.0)
+    d = (1.0 + ex) * x0 - ex * x0_prev
+    return cx * x + cd * d, x0
+
+
 def dpm_solver_sample(denoise_fn: DenoiseFn, schedule: DiffusionSchedule,
                       x_T: torch.Tensor, num_inference_steps: int = 25,
                       clip_sample: bool = True) -> torch.Tensor:
@@ -64,12 +90,6 @@ def dpm_solver_sample(denoise_fn: DenoiseFn, schedule: DiffusionSchedule,
     for i, t in enumerate(ts.tolist()):
         t_batch = torch.full((x.shape[0],), t, dtype=torch.long, device=dev)
         eps = denoise_fn(x, t_batch).float()
-        acp_t = acp[t]
-        x0 = (x - torch.sqrt(1.0 - acp_t) * eps) / torch.sqrt(acp_t)
-        if clip_sample:
-            x0 = x0.clamp(-1.0, 1.0)
-        cx, cd, ex = coef[0, i], coef[1, i], coef[2, i]
-        d = (1.0 + ex) * x0 - ex * x0_prev
-        x = cx * x + cd * d
-        x0_prev = x0
+        x, x0_prev = dpm_step(x, eps, x0_prev, acp[t], coef[0, i],
+                              coef[1, i], coef[2, i], clip_sample)
     return x

@@ -203,12 +203,14 @@ def mask_to_bias(mask: torch.Tensor,
     return bias[:, None, None, :]
 
 
-def cast_compute_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+def cast_compute_(module: nn.Module, dtype: torch.dtype,
+                  pack_cpu: bool = False) -> nn.Module:
     """Cast the matmul/conv/embedding weights of ``module`` to ``dtype`` in
     place; norm params stay f32.  The port of a flax model run with
     ``dtype=bf16`` over f32 params, for inference: the cast happens once,
-    not per call.  The UNet resnet blocks' weights on the card are packed
-    into the fused kernel's layout here, once, too."""
+    not per call.  The UNet resnet blocks' weights on the card (and with
+    ``pack_cpu`` on the CPU too) are packed into the fused kernel's layout
+    here, once, too."""
     from prompt_tts_tpu_torch.models.unet1d import ResnetBlock1D
     from prompt_tts_tpu_torch.ops.resnet import pack_kernel_weights_
     for m in module.modules():
@@ -217,7 +219,7 @@ def cast_compute_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
             m.to(dtype)
     for m in module.modules():
         if isinstance(m, ResnetBlock1D):
-            pack_kernel_weights_(m)
+            pack_kernel_weights_(m, cpu=pack_cpu)
     return module
 
 

@@ -13,6 +13,14 @@ TF32 parts, three products), which keeps f32 accuracy.
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version (:func:`prompt_tts_tpu_torch.ops.attention.attention_plain`).
 ``flash_attention.launches`` counts kernel launches.
+
+The kernel is also the op ``torch.ops.ptts.flash_attention(q, k, v, bias,
+return_lse) -> (o, lse)`` (``lse`` is an empty tensor unless asked for):
+the launcher on a CUDA tensor, the plain version with its f32 row
+log-sum-exp on a CPU tensor, shapes alone on a fake tensor.  Traced code
+(``torch.export``) reaches the kernel through the op; eager calls go to the
+launcher directly, which saves the dispatcher's host time (PERF.md, the op
+route).
 """
 
 import ctypes
@@ -22,6 +30,7 @@ import torch
 
 from prompt_tts_tpu_torch.ops.attention import attention_plain
 from prompt_tts_tpu_torch.ops.cuda import _build, opcount
+from prompt_tts_tpu_torch.ops.cuda.library import LIB, traced
 
 HEAD_DIMS = (32, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,9 +70,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias is not None and tuple(bias.shape) != (B, 1, 1, Tk):
         raise ValueError(f"attention takes a key-only bias [B,1,1,Tk] = "
                          f"{(B, 1, 1, Tk)} or None, got {tuple(bias.shape)}")
+    if traced():
+        out, lse = torch.ops.ptts.flash_attention(q, k, v, bias, return_lse)
+        return (out, lse) if return_lse else out
     if q.device.type == "cpu":
         out = attention_plain(q, k, v, bias)
         return (out, None) if return_lse else out
+    out, lse = _launch(q, k, v, bias, return_lse)
+    return (out, lse) if return_lse else out
+
+
+def _launch(q, k, v, bias, return_lse):
+    """Check the inputs and launch the kernel: ``(o, lse or None)``."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     for name, t in (("k", k), ("v", v)):
@@ -100,7 +120,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(err, "attention kernel launch")
     flash_attention.launches += 1
     opcount.record(opcount.attention_fwd(B, Tq, Tk, H, D))
-    return (out, lse) if return_lse else out
+    return out, lse
 
 
 flash_attention.launches = 0
+
+
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The f32 row log-sum-exp ``[B, H, Tq]`` of the scaled scores plus the
+    bias, in natural-log units, as the kernel writes it."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * q.shape[-1] ** -0.5
+    if bias is not None:
+        s = s + bias.float()
+    return torch.logsumexp(s, dim=-1)
+
+
+def _op_cpu(q, k, v, bias, return_lse=False):
+    lse = (attention_lse_plain(q, k, bias) if return_lse
+           else q.new_empty(0, dtype=torch.float32))
+    # contiguous, as the kernel writes it: the callers' reshape copies a
+    # strided result to the same layout, so the values downstream are the
+    # eager path's
+    return attention_plain(q, k, v, bias).contiguous(), lse
+
+
+def _op_cuda(q, k, v, bias, return_lse=False):
+    out, lse = _launch(q, k, v, bias, return_lse)
+    return out, (q.new_empty(0, dtype=torch.float32) if lse is None else lse)
+
+
+def _op_fake(q, k, v, bias, return_lse=False):
+    B, Tq, H, _ = q.shape
+    lse = q.new_empty((B, H, Tq) if return_lse else (0,),
+                      dtype=torch.float32)
+    return torch.empty_like(q), lse
+
+
+LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, Tensor? bias, "
+           "bool return_lse=False) -> (Tensor, Tensor)")
+LIB.impl("flash_attention", _op_cpu, "CPU")
+LIB.impl("flash_attention", _op_cuda, "CUDA")
+torch.library.register_fake("ptts::flash_attention", _op_fake, lib=LIB)

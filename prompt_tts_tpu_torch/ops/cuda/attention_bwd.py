@@ -17,6 +17,11 @@ pass) or raises; a CPU tensor runs the plain version
 (:func:`prompt_tts_tpu_torch.ops.attention.attention_bwd_plain`), which
 recomputes the softmax and needs no lse.  ``attention_bwd.launches``
 counts kernel launches, two per call.
+
+The kernel is also the op ``torch.ops.ptts.attention_bwd(q, k, v, o, do,
+bias, lse, need_dbias) -> (dq, dk, dv, dbias)`` (``dbias`` an empty tensor
+unless asked for): the launcher on CUDA tensors, the plain version on CPU
+ones (``ops/cuda/library.py``).
 """
 
 import ctypes
@@ -27,6 +32,7 @@ import torch
 from prompt_tts_tpu_torch.ops.attention import attention_bwd_plain
 from prompt_tts_tpu_torch.ops.cuda import _build, opcount
 from prompt_tts_tpu_torch.ops.cuda.attention import check_copy_alignment
+from prompt_tts_tpu_torch.ops.cuda.library import LIB, traced
 
 HEAD_DIMS = (32, 64, 96, 128)
 LAUNCHES_PER_CALL = 2
@@ -56,9 +62,21 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{(B, 1, 1, Tk)} or None, got {tuple(bias.shape)}")
     if need_dbias and bias is None:
         raise ValueError("attention_bwd: need_dbias without a bias")
+    if traced():
+        dq, dk, dv, db = torch.ops.ptts.attention_bwd(q, k, v, o, do, bias,
+                                                      lse, need_dbias)
+        return dq, dk, dv, (db if need_dbias else None)
     if q.device.type == "cpu":
         dq, dk, dv, db = attention_bwd_plain(q, k, v, o, do, bias)
         return dq, dk, dv, (db.to(bias.dtype) if need_dbias else None)
+    return _launch(q, k, v, o, do, bias, lse, need_dbias)
+
+
+def _launch(q, k, v, o, do, bias, lse, need_dbias):
+    """Check the inputs and launch both passes: ``(dq, dk, dv, dbias or
+    None)``."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd: unsupported device {q.device}")
     if q.dtype not in _DTYPES:
@@ -110,3 +128,32 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 attention_bwd.launches = 0
+
+
+def _op_cpu(q, k, v, o, do, bias, lse, need_dbias=False):
+    dq, dk, dv, db = attention_bwd_plain(q, k, v, o, do, bias)
+    db = db.to(bias.dtype).contiguous() if need_dbias else q.new_empty(
+        0, dtype=torch.float32)
+    return dq.contiguous(), dk.contiguous(), dv.contiguous(), db
+
+
+def _op_cuda(q, k, v, o, do, bias, lse, need_dbias=False):
+    dq, dk, dv, db = _launch(q, k, v, o, do, bias, lse, need_dbias)
+    if db is None:
+        db = q.new_empty(0, dtype=torch.float32)
+    return dq, dk, dv, db
+
+
+def _op_fake(q, k, v, o, do, bias, lse, need_dbias=False):
+    B, _, _, _ = q.shape
+    db = (bias.new_empty(B, 1, 1, k.shape[1]) if need_dbias
+          else q.new_empty(0, dtype=torch.float32))
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), db
+
+
+LIB.define("attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor do, "
+           "Tensor? bias, Tensor lse, bool need_dbias=False) "
+           "-> (Tensor, Tensor, Tensor, Tensor)")
+LIB.impl("attention_bwd", _op_cpu, "CPU")
+LIB.impl("attention_bwd", _op_cuda, "CUDA")
+torch.library.register_fake("ptts::attention_bwd", _op_fake, lib=LIB)

@@ -15,6 +15,11 @@ arithmetic (``csrc/lstm.cuh``); :func:`lstm_plan` is their launch shape.
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version.  ``.launches`` counts the calls that launched a kernel (one per
 layer).
+
+Each kernel is also an op, ``torch.ops.ptts.lstm_recurrence(x_proj, w_hh)``
+and ``torch.ops.ptts.lstm_recurrence_t(x_proj, w_hh_t)``: the launcher
+(its checks, launch plan and the persistent grid's occupancy query) on
+CUDA tensors, the plain version on CPU ones (``ops/cuda/library.py``).
 """
 
 import ctypes
@@ -22,6 +27,7 @@ import ctypes
 import torch
 
 from prompt_tts_tpu_torch.ops.cuda import _build, opcount
+from prompt_tts_tpu_torch.ops.cuda.library import LIB, traced
 
 # csrc/lstm.cuh: hidden units a CTA owns (both kernels), the most batch
 # rows of h_{t-1} it stages at once
@@ -65,6 +71,20 @@ def lstm_plan(schedule: str, B: int, H: int) -> dict:
             f"{plan['smem']} bytes of shared memory a CTA, more than the "
             f"{STEP_SMEM_MAX} that leave room for two CTAs an SM")
     return plan
+
+
+def _check_shapes(name, x_proj, w, transposed):
+    """``(T, B, H)`` of x_proj ``[T,B,4H]`` and w ``[H,4H]`` (``[4H,H]``
+    when ``transposed``); raises where they do not fit."""
+    wants = "w_hh_t [4H,H]" if transposed else "w_hh [H,4H]"
+    if x_proj.dim() != 3 or w.dim() != 2:
+        raise ValueError(f"{name}: x_proj [T,B,4H], {wants}")
+    T, B, G = x_proj.shape
+    H = w.shape[1] if transposed else w.shape[0]
+    if G != 4 * H or w.shape[0 if transposed else 1] != G:
+        raise ValueError(f"{name}: x_proj last dim {G} and {wants.split()[0]} "
+                         f"{tuple(w.shape)} do not match 4*H ({4 * H})")
+    return T, B, H
 
 
 def _check_inputs(name, x_proj, w):
@@ -115,15 +135,17 @@ def _lib():
 def lstm_recurrence(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """Run the LSTM recurrence: x_proj ``[T,B,4H]`` f32, w_hh ``[H,4H]`` f32
     -> hidden states ``[T,B,H]`` f32."""
-    if x_proj.dim() != 3 or w_hh.dim() != 2:
-        raise ValueError("lstm_recurrence: x_proj [T,B,4H], w_hh [H,4H]")
-    T, B, G = x_proj.shape
-    H = w_hh.shape[0]
-    if G != 4 * H or w_hh.shape[1] != G:
-        raise ValueError(f"lstm_recurrence: x_proj last dim {G} and w_hh "
-                         f"{tuple(w_hh.shape)} do not match 4*H ({4 * H})")
+    _check_shapes("lstm_recurrence", x_proj, w_hh, transposed=False)
+    if traced():
+        return torch.ops.ptts.lstm_recurrence(x_proj, w_hh)
     if x_proj.device.type == "cpu":
         return lstm_recurrence_plain(x_proj, w_hh)
+    return _launch(x_proj, w_hh)
+
+
+def _launch(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """Check the inputs and launch the step kernel."""
+    T, B, H = _check_shapes("lstm_recurrence", x_proj, w_hh, False)
     _check_inputs("lstm_recurrence", x_proj, w_hh)
     lstm_plan("step", B, H)
     out = torch.empty(T, B, H, device=x_proj.device, dtype=torch.float32)
@@ -194,16 +216,17 @@ def lstm_recurrence_t(x_proj: torch.Tensor,
                       w_hh_t: torch.Tensor) -> torch.Tensor:
     """The persistent schedule: x_proj ``[T,B,4H]`` f32, w_hh_t ``[4H,H]``
     f32 -> hidden states ``[T,B,H]`` f32."""
-    if x_proj.dim() != 3 or w_hh_t.dim() != 2:
-        raise ValueError("lstm_recurrence_t: x_proj [T,B,4H], w_hh_t [4H,H]")
-    T, B, G = x_proj.shape
-    H = w_hh_t.shape[1]
-    if G != 4 * H or w_hh_t.shape[0] != G:
-        raise ValueError(f"lstm_recurrence_t: x_proj last dim {G} and "
-                         f"w_hh_t {tuple(w_hh_t.shape)} do not match 4*H "
-                         f"({4 * H})")
+    _check_shapes("lstm_recurrence_t", x_proj, w_hh_t, transposed=True)
+    if traced():
+        return torch.ops.ptts.lstm_recurrence_t(x_proj, w_hh_t)
     if x_proj.device.type == "cpu":
         return lstm_recurrence_t_plain(x_proj, w_hh_t)
+    return _launch_t(x_proj, w_hh_t)
+
+
+def _launch_t(x_proj: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
+    """Check the inputs and launch the persistent kernel."""
+    T, B, H = _check_shapes("lstm_recurrence_t", x_proj, w_hh_t, True)
     _check_inputs("lstm_recurrence_t", x_proj, w_hh_t)
     lstm_plan("persistent", B, H)
     lstm_t_grid(B, H, x_proj.device)
@@ -221,3 +244,20 @@ def lstm_recurrence_t(x_proj: torch.Tensor,
 
 
 lstm_recurrence_t.launches = 0
+
+
+def _fake(x_proj: torch.Tensor, w: torch.Tensor, H) -> torch.Tensor:
+    T, B, _ = x_proj.shape
+    return x_proj.new_empty(T, B, H, dtype=torch.float32)
+
+
+LIB.define("lstm_recurrence(Tensor x_proj, Tensor w_hh) -> Tensor")
+LIB.impl("lstm_recurrence", lstm_recurrence_plain, "CPU")
+LIB.impl("lstm_recurrence", _launch, "CUDA")
+torch.library.register_fake(
+    "ptts::lstm_recurrence", lambda x, w: _fake(x, w, w.shape[0]), lib=LIB)
+LIB.define("lstm_recurrence_t(Tensor x_proj, Tensor w_hh_t) -> Tensor")
+LIB.impl("lstm_recurrence_t", lstm_recurrence_t_plain, "CPU")
+LIB.impl("lstm_recurrence_t", _launch_t, "CUDA")
+torch.library.register_fake(
+    "ptts::lstm_recurrence_t", lambda x, w: _fake(x, w, w.shape[1]), lib=LIB)

@@ -17,6 +17,12 @@ k3 kernels as ``[3, Cout, Cin]`` and the shortcut as ``[Cout, Cin]``
 as their TF32 planes, norms and biases as f32.  A CUDA tensor launches the
 kernel or raises; a CPU tensor runs :func:`fused_resnet_block_plain`,
 which rounds where the kernel rounds.
+
+The kernel is also the op ``torch.ops.ptts.fused_resnet_block(x,
+temb_proj, g1w, g1b, w1, b1, g2w, g2b, w2, b2, ws, bs, groups, eps)``, the
+packed tensors in :data:`_ORDER` (``ops/cuda/library.py``): the launcher on
+CUDA tensors, the plain version on CPU ones.  An exported UNet passes it
+the block's packed buffers (``ops/resnet.py:pack_kernel_weights_``).
 """
 
 import ctypes
@@ -27,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from prompt_tts_tpu_torch.ops.cuda import _build, opcount
+from prompt_tts_tpu_torch.ops.cuda.library import LIB, traced
 from prompt_tts_tpu_torch.ops.cuda.rvq import split_tf32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -97,16 +104,28 @@ def pack_resnet_weights(block, dtype: torch.dtype) -> Dict[str, object]:
         "ws": None if sc is None else w(sc.conv.weight[..., 0]),
         "bs": None if sc is None else f32(sc.conv.bias),
     }
-    cout, cin = packed["w1"].shape[-2:]
     for name in _ORDER:
         t = packed[name]
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"pack_resnet_weights: {name} is not 16-byte "
                              f"aligned (the kernel loads 16-byte vectors)")
+    return _with_spec(packed, dtype)
+
+
+def _with_spec(packed: Dict[str, object], dtype: torch.dtype
+               ) -> Dict[str, object]:
+    """``packed`` with its ``spec`` and its tensors' addresses in the
+    kernel's order."""
+    cout, cin = packed["w1"].shape[-2:]
     packed["spec"] = (dtype, packed["w1"].device, cin, cout)
     packed["ptrs"] = tuple(None if packed[k] is None else packed[k].data_ptr()
                            for k in _ORDER)
     return packed
+
+
+def packed_tensors(packed: Dict[str, object]):
+    """The packed tensors in the op's order (:data:`_ORDER`)."""
+    return tuple(packed[k] for k in _ORDER)
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,6 +154,9 @@ def fused_resnet_block(x: torch.Tensor, temb_proj: torch.Tensor,
     """x ``[B, T, Cin]`` (f32 or bf16), temb_proj ``[B, Cout]``, ``packed``
     from :func:`pack_resnet_weights` at x's dtype and device -> ``[B, T,
     Cout]`` at x's dtype, in the tiles :func:`resnet_tiles` picks."""
+    if traced():
+        return torch.ops.ptts.fused_resnet_block(
+            x, temb_proj, *packed_tensors(packed), groups, eps)
     return _launch(x, temb_proj, packed, groups, eps, None)
 
 
@@ -280,3 +302,27 @@ def _fused(x, temb_proj, packed, groups, eps, mm):
     else:
         out = out + (mm(x, ws) + packed["bs"])
     return out.to(dt)
+
+
+def _op_impl(x, temb_proj, g1w, g1b, w1, b1, g2w, g2b, w2, b2, ws, bs,
+             groups, eps):
+    """The op on real tensors: the packed weights as arguments; the
+    launcher on CUDA tensors, the plain version on CPU ones."""
+    packed = dict(zip(_ORDER, (g1w, g1b, w1, b1, g2w, g2b, w2, b2, ws, bs)))
+    return _launch(x, temb_proj, _with_spec(packed, w1.dtype), groups, eps,
+                   None)
+
+
+def _op_fake(x, temb_proj, g1w, g1b, w1, b1, g2w, g2b, w2, b2, ws, bs,
+             groups, eps):
+    B, T, _ = x.shape
+    return x.new_empty(B, T, w1.shape[-2])
+
+
+LIB.define("fused_resnet_block(Tensor x, Tensor temb_proj, Tensor g1w, "
+           "Tensor g1b, Tensor w1, Tensor b1, Tensor g2w, Tensor g2b, "
+           "Tensor w2, Tensor b2, Tensor? ws, Tensor? bs, int groups, "
+           "float eps) -> Tensor")
+LIB.impl("fused_resnet_block", _op_impl, "CPU")
+LIB.impl("fused_resnet_block", _op_impl, "CUDA")
+torch.library.register_fake("ptts::fused_resnet_block", _op_fake, lib=LIB)

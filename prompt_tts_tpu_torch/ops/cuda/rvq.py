@@ -20,6 +20,10 @@ holds them to: every vector whose indices differ must, at the first layer
 where they differ, hold a near-tie in f64.  :func:`rvq_encode_tf32x3`
 computes the kernel's scores in PyTorch (for the tests; never on the
 encode path).
+
+The kernel is also the op ``torch.ops.ptts.rvq_encode(embeddings,
+codebooks)``: the launcher on CUDA tensors, :func:`rvq_encode_plain` on
+CPU ones (``ops/cuda/library.py``).
 """
 
 import ctypes
@@ -29,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from prompt_tts_tpu_torch.ops.cuda import _build, opcount
+from prompt_tts_tpu_torch.ops.cuda.library import LIB, traced
 
 DIM = 128          # the code dim the kernel takes
 CODE_TILE = 64     # K must be a multiple of the kernel's code tile
@@ -141,8 +146,21 @@ def rvq_encode(embeddings: torch.Tensor,
     if Dc != D:
         raise ValueError(f"rvq_encode: embedding dim {D} != codebook dim "
                          f"{Dc}")
+    if traced():
+        return torch.ops.ptts.rvq_encode(embeddings, codebooks)
     if embeddings.device.type == "cpu":
         return rvq_encode_plain(embeddings, codebooks)
+    return _encode_cuda(embeddings, codebooks)
+
+
+def _encode_cuda(embeddings: torch.Tensor,
+                 codebooks: torch.Tensor) -> torch.Tensor:
+    """Check the inputs, plan and launch the kernel."""
+    B, T, D = embeddings.shape
+    n_q, K, Dc = codebooks.shape
+    if Dc != D:
+        raise ValueError(f"rvq_encode: embedding dim {D} != codebook dim "
+                         f"{Dc}")
     if embeddings.device.type != "cuda" or \
             codebooks.device != embeddings.device:
         raise ValueError(f"rvq_encode: embeddings on {embeddings.device}, "
@@ -168,6 +186,18 @@ def rvq_encode(embeddings: torch.Tensor,
 
 
 rvq_encode.launches = 0
+
+
+def _encode_fake(embeddings: torch.Tensor,
+                 codebooks: torch.Tensor) -> torch.Tensor:
+    B, T, _ = embeddings.shape
+    return embeddings.new_empty(B, codebooks.shape[0], T, dtype=torch.int32)
+
+
+LIB.define("rvq_encode(Tensor embeddings, Tensor codebooks) -> Tensor")
+LIB.impl("rvq_encode", rvq_encode_plain, "CPU")
+LIB.impl("rvq_encode", _encode_cuda, "CUDA")
+torch.library.register_fake("ptts::rvq_encode", _encode_fake, lib=LIB)
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,12 @@ On a CUDA tensor, when no gradient is needed, :func:`resnet_block` launches
 the hand-written kernel (``ops/cuda/resnet.py``) on the weights that
 :func:`pack_kernel_weights_` packed into its layout once, when
 ``models.layers.cast_compute_`` cast the model for inference; on a CPU
-tensor it runs :func:`resnet_block_plain`.  Training needs gradients and
+tensor it runs :func:`resnet_block_plain`, unless the block's weights were
+packed on the CPU too (the synthesis programs', ``pipeline.Synthesizer``),
+where it runs the kernel's plain version on them, as the exported program
+does (``ops/cuda/resnet.py:fused_resnet_block_plain``).  The packed
+tensors are the block's non-persistent buffers, so an export passes them
+to the kernel's op as the module's state.  Training needs gradients and
 the kernel has none, so there the module arithmetic runs under autograd
 (:func:`resnet_block_plain`), as the JAX training path keeps XLA for this
 op.
@@ -18,6 +23,11 @@ op.
 
 import torch
 import torch.nn.functional as F
+
+from prompt_tts_tpu_torch.ops.cuda.library import traced
+from prompt_tts_tpu_torch.ops.cuda.resnet import (
+    _ORDER, fused_resnet_block, pack_resnet_weights,
+)
 
 
 def resnet_block_plain(block, x: torch.Tensor,
@@ -43,17 +53,22 @@ def _kernel_dtype(block) -> torch.dtype:
     return block.conv1.compute_dtype or block.conv1.conv.weight.dtype
 
 
-def pack_kernel_weights_(block) -> None:
+def pack_kernel_weights_(block, cpu: bool = False) -> None:
     """Keep ``block``'s weights in the kernel's layout as
-    ``block.kernel_weights``, which every later kernel call reads.  The copy
-    does not follow later changes to the weights: cast (and so pack) again
-    after loading new ones.  Weights off the card are not packed: the plain
-    version reads the module."""
-    block.kernel_weights = None
-    if block.conv1.conv.weight.device.type == "cuda":
-        from prompt_tts_tpu_torch.ops.cuda.resnet import pack_resnet_weights
-        block.kernel_weights = pack_resnet_weights(block,
-                                                   _kernel_dtype(block))
+    ``block.kernel_weights``, which every later kernel call reads, and as
+    its non-persistent buffers ``kernel_<name>`` (not in the state dict),
+    which an export reads.  The copy does not follow later changes to the
+    weights: cast (and so pack) again after loading new ones.  Weights off
+    the card are packed only with ``cpu``; else the plain version reads
+    the module."""
+    packed = None
+    if cpu or block.conv1.conv.weight.device.type == "cuda":
+        packed = pack_resnet_weights(block, _kernel_dtype(block))
+    block.kernel_weights = packed
+    for name in _ORDER:
+        block.register_buffer(f"kernel_{name}",
+                              None if packed is None else packed[name],
+                              persistent=False)
 
 
 def resnet_block(block, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
@@ -61,13 +76,14 @@ def resnet_block(block, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
     -> ``[B, T, Cout]``."""
     temb_proj = block.time_emb_proj(F.silu(temb))
     dropout = block.training and block.dropout.p > 0
-    if x.device.type == "cpu" or dropout or _needs_grad(block, x, temb):
+    packed = getattr(block, "kernel_weights", None)
+    if (x.device.type == "cpu" and packed is None) or dropout or \
+            _needs_grad(block, x, temb):
         return resnet_block_plain(block, x, temb_proj)
-    from prompt_tts_tpu_torch.ops.cuda.resnet import (
-        fused_resnet_block, pack_resnet_weights,
-    )
     dt = _kernel_dtype(block)
-    packed = block.kernel_weights
+    if packed is not None and traced():
+        # the buffers, which the export lifts as the module's state
+        packed = {k: getattr(block, f"kernel_{k}") for k in _ORDER}
     if packed is None or packed["w1"].dtype != dt:
         # not cast for inference (a training model's eval loss, whose
         # weights change every step): pack for this call

@@ -17,8 +17,7 @@ import contextlib
 import copy
 import math
 import re
-import threading
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,15 +27,21 @@ from prompt_tts_tpu_torch.config import Config
 from prompt_tts_tpu_torch.frontend.tokenizer import Tokenizer
 from prompt_tts_tpu_torch.codec.encodec import EncodecCodec
 from prompt_tts_tpu_torch.codec.layers import CodecLSTM
-from prompt_tts_tpu_torch.diffusion.ddim import ddim_sample
-from prompt_tts_tpu_torch.diffusion.dpm import dpm_solver_sample
+from prompt_tts_tpu_torch.diffusion.ddim import ddim_step
+from prompt_tts_tpu_torch.diffusion.dpm import dpm_step
 from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
+from prompt_tts_tpu_torch.diffusion.steps import (
+    SAMPLERS, initial_noise, run_steps, sampler_tables,
+)
 from prompt_tts_tpu_torch.models.embeddings import GaussianFourierProjection
 from prompt_tts_tpu_torch.models.layers import cast_compute_
 from prompt_tts_tpu_torch.models.prompt_encoder import PromptEncoder
 from prompt_tts_tpu_torch.models.prompt_tts import TTSPromptSpeaker
 from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
-from prompt_tts_tpu_torch.models.unet1d import cross_attention_kv
+from prompt_tts_tpu_torch.models.unet1d import cross_attn_sites
+from prompt_tts_tpu_torch.utils.precision import (  # noqa: F401
+    _f32_scope, denoise_scope, full_f32,
+)
 
 SAMPLE_RATE = 24000
 # seeds of the CPU generators that draw random weights (no checkpoint given)
@@ -59,40 +64,6 @@ def wav_to_pcm16(wav: torch.Tensor) -> torch.Tensor:
     """float wav in [-1, 1] -> int16 PCM: clip(round-half-to-even(x*32767)),
     bit-identical to ``prompt_tts_tpu.utils.wav.pcm16_bytes``."""
     return torch.round(wav * 32767.0).clamp(-32768.0, 32767.0).to(torch.int16)
-
-
-# full_f32's process-wide scope: how many entries are open, and the flags
-# saved at the first of them
-_f32_lock = threading.Lock()
-_f32_scope = {"depth": 0, "saved": None}
-
-
-@contextlib.contextmanager
-def full_f32():
-    """Run f32 convolutions and matmuls in full f32, not TF32.
-
-    cuDNN convolutions default to TF32 on the card (about three decimal
-    digits), which would miss the codec's 1e-5 decode contract.  The flags
-    are process-global, so the scope is too: they go off at the first
-    entry from any thread and come back at the last exit, and a thread
-    still inside never has them restored under it.  A thread outside the
-    scope may meanwhile compute without TF32: only more exact.
-    """
-    with _f32_lock:
-        if _f32_scope["depth"] == 0:
-            _f32_scope["saved"] = (torch.backends.cudnn.allow_tf32,
-                                   torch.backends.cuda.matmul.allow_tf32)
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-        _f32_scope["depth"] += 1
-    try:
-        yield
-    finally:
-        with _f32_lock:
-            _f32_scope["depth"] -= 1
-            if _f32_scope["depth"] == 0:
-                (torch.backends.cudnn.allow_tf32,
-                 torch.backends.cuda.matmul.allow_tf32) = _f32_scope["saved"]
 
 
 def stream_scope(stream):
@@ -189,6 +160,132 @@ class CodecRunner:
             return self.codec.encode(wav, lstm_schedule=lstm_schedule)
 
 
+class ConditionProgram(nn.Module):
+    """A synthesis's conditioning, once a call: ids/mask ``[B, S]`` (and
+    the prompt family's prompt latents ``[B, prompt_frames, n_q]``) -> the
+    step program's ``cond``, a tuple of every cross-attention ``(k, v)`` of
+    the UNet, flattened in ``cross_attn_sites`` order (hoisted out of the
+    sampler loop), then the prompt family's speaker embedding.  Under
+    classifier-free guidance (``guidance_scale`` != 1) the null branch --
+    zero ids, zero mask and zero prompt latents -- is concatenated after
+    the conditional rows.  It owns the encoders and the UNet's
+    cross-attention ``to_k``/``to_v``, and no other weights."""
+
+    def __init__(self, model: nn.Module, guidance_scale: float):
+        super().__init__()
+        self.prompted = isinstance(model, TTSPromptSpeaker)
+        self.guidance_scale = guidance_scale
+        self.text_encoder = model.text_encoder
+        if self.prompted:
+            self.prompt_encoder = model.prompt_encoder
+        unet = model.unet
+        self.num_heads = unet.config.unet_num_heads
+        attn2 = [getattr(getattr(getattr(unet, block), attn),
+                         f"block_{l}").attn2
+                 for block, attn, n in cross_attn_sites(unet.config)
+                 for l in range(n)]
+        self.to_k = nn.ModuleList(a.to_k for a in attn2)
+        self.to_v = nn.ModuleList(a.to_v for a in attn2)
+
+    def encode(self, ids, mask, prompt=None):
+        """(context, speaker_emb or None) for ids/mask (and the prompt
+        family's prompt latents)."""
+        context = self.text_encoder(ids, mask)
+        if not self.prompted:
+            return context, None
+        tokens, speaker = self.prompt_encoder(prompt)
+        return torch.cat([context, tokens.to(context.dtype)], dim=1), speaker
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor,
+                prompt: Optional[torch.Tensor] = None) -> tuple:
+        context, speaker = self.encode(ids, mask, prompt)
+        if self.guidance_scale != 1.0:
+            null_ctx, null_spk = self.encode(
+                torch.zeros_like(ids), torch.zeros_like(mask),
+                None if prompt is None else torch.zeros_like(prompt))
+            context = torch.cat([context, null_ctx])
+            if speaker is not None:
+                speaker = torch.cat([speaker, null_spk])
+        B, S, _ = context.shape
+        cond = []
+        for to_k, to_v in zip(self.to_k, self.to_v):
+            cond += [lin(context).reshape(B, S, self.num_heads, -1)
+                     for lin in (to_k, to_v)]
+        if speaker is not None:
+            cond.append(speaker)
+        return tuple(cond)
+
+
+class StepProgram(nn.Module):
+    """One sampler step: ``(t, coef, cond, state) -> state``.  ``t`` is the
+    step's timestep ``[B]`` (int64), ``coef`` its table row
+    (``diffusion.steps.sampler_tables``), ``cond`` the condition program's
+    output and ``state`` ``(x,)`` for DDIM or ``(x, x0_prev)`` for
+    DPM-Solver++(2M), f32.  The UNet's eps (under classifier-free guidance
+    the conditional and null rows in one batch, ``eps_u + s (eps_c -
+    eps_u)``), then :func:`~prompt_tts_tpu_torch.diffusion.ddim.ddim_step`
+    or :func:`~prompt_tts_tpu_torch.diffusion.dpm.dpm_step`.  It owns the
+    UNet."""
+
+    def __init__(self, model: nn.Module, guidance_scale: float,
+                 sampler: str):
+        super().__init__()
+        self.unet = model.unet
+        self.prompted = isinstance(model, TTSPromptSpeaker)
+        self.guidance_scale = guidance_scale
+        self.sampler = sampler
+        self.sites = list(cross_attn_sites(model.unet.config))
+
+    def eps(self, x: torch.Tensor, t: torch.Tensor,
+            cond: tuple) -> torch.Tensor:
+        """The (guided) eps of the f32 state ``x`` at ``t``, in f32."""
+        kv, i = {}, 0
+        for block, attn, n in self.sites:
+            kv.setdefault(block, {})[attn] = [
+                (cond[i + 2 * l], cond[i + 2 * l + 1]) for l in range(n)]
+            i += 2 * n
+        speaker = cond[-1] if self.prompted else None
+        s = self.guidance_scale
+        if s == 1.0:
+            return self.unet(x, t, None, cross_kv=kv,
+                             class_emb=speaker).float()
+        eps_c, eps_u = self.unet(torch.cat([x, x]), torch.cat([t, t]), None,
+                                 cross_kv=kv,
+                                 class_emb=speaker).float().chunk(2)
+        return eps_u + s * (eps_c - eps_u)
+
+    def forward(self, t: torch.Tensor, coef: torch.Tensor, cond: tuple,
+                state: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+        x = state[0]
+        eps = self.eps(x, t, cond)
+        if self.sampler == "dpm":
+            return dpm_step(x, eps, state[1], coef[0], coef[1], coef[2],
+                            coef[3])
+        return (ddim_step(x, eps, coef[0], coef[1]),)
+
+
+class FinishProgram(nn.Module):
+    """Latents ``[B, T, n_q]`` -> ``(wav, codes)``: the codes rounded from
+    the latents, the codec's decode in its dtype, the wav in f32 and with
+    ``pcm16`` quantized to int16 PCM on the device.  The decode is the
+    runner's (:meth:`CodecRunner.decode`, TF32 off), whose codec this
+    program owns as a registered submodule, so an export takes its weights
+    as the program's state."""
+
+    def __init__(self, runner: "CodecRunner", pcm16: bool):
+        super().__init__()
+        self.runner = runner
+        self.codec = runner.codec
+        self.pcm16 = pcm16
+
+    def forward(self, latents: torch.Tensor):
+        codes = latents_to_codes(latents)
+        wav = self.runner.decode(codes)
+        if self.pcm16:
+            wav = wav_to_pcm16(wav)
+        return wav, codes
+
+
 class Synthesizer:
     """Owns the model and codec and runs text (+ a voice prompt) -> wav.
 
@@ -206,6 +303,14 @@ class Synthesizer:
     (``prompt_conditioning``) builds ``TTSPromptSpeaker``, which takes a
     voice prompt per request.
 
+    A call runs three programs (nn.Modules over the model's and codec's
+    own weights, which ``aot.export_synthesis`` exports as they are): the
+    conditioning (:class:`ConditionProgram`), one sampler step a step
+    (:class:`StepProgram`, run by ``diffusion.steps.run_steps``) and the
+    decode (:class:`FinishProgram`).  On the CPU the UNet's resnet blocks
+    take the fused kernel's plain version on packed weights, as the card
+    takes the kernel.
+
     On the card a call's device work goes on the caller's current stream:
     several threads may call at once, each on a stream of its own.
     """
@@ -217,7 +322,7 @@ class Synthesizer:
                  codec_state: Optional[dict] = None,
                  sampler: str = "ddim", guidance_scale: float = 1.0,
                  codec_dtype: torch.dtype = torch.float32):
-        if sampler not in ("ddim", "dpm"):
+        if sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {sampler!r}")
         self.config = config or Config()
         self.device = torch.device(device)
@@ -234,12 +339,61 @@ class Synthesizer:
         else:
             random_init_(self.model,
                          torch.Generator().manual_seed(MODEL_INIT_SEED))
-        cast_compute_(self.model.eval(), dtype)
+        cast_compute_(self.model.eval(), dtype, pack_cpu=True)
         self.codec_runner = CodecRunner(self.device, codec_state)
         self.codec_fast = self.codec_runner.at_dtype(codec_dtype)
         self.schedule = linear_schedule(
             self.config.train.num_train_timesteps, device=self.device)
         self.tokenizer = Tokenizer(max_len=mcfg.cmu_seq_len)
+        # the programs and tables of the current sampler settings, which
+        # callers may change between calls
+        self._programs: dict = {}
+        # the first setting's table goes to the device here, before any
+        # call, as the schedule does: a stream a server makes later waits
+        # on the work queued before it
+        self._device_tables()
+
+    def _cached(self, key, make):
+        if key not in self._programs:
+            self._programs[key] = make()
+        return self._programs[key]
+
+    def condition_program(self) -> ConditionProgram:
+        """The conditioning program at the current guidance scale."""
+        return self._cached(("condition", self.guidance_scale),
+                            lambda: ConditionProgram(self.model,
+                                                     self.guidance_scale))
+
+    def step_program(self) -> StepProgram:
+        """The step program of the current sampler and guidance scale."""
+        return self._cached(
+            ("step", self.sampler, self.guidance_scale),
+            lambda: StepProgram(self.model, self.guidance_scale,
+                                self.sampler))
+
+    def finish_program(self, pcm16: bool) -> FinishProgram:
+        """The decode program (int16 PCM out with ``pcm16``)."""
+        return self._cached(("finish", bool(pcm16)),
+                            lambda: FinishProgram(self.codec_fast,
+                                                  bool(pcm16)))
+
+    def sampler_tables(self):
+        """``(ts, coef)`` of the current sampler and step count, ``coef``
+        the f32 table ``[N, k]`` as host numpy
+        (``diffusion.steps.sampler_tables``), from this device's schedule."""
+        return self._cached(
+            ("tables", self.sampler, self.num_inference_steps),
+            lambda: sampler_tables(
+                self.sampler, self.schedule.alphas_cumprod.cpu().numpy(),
+                self.num_inference_steps))
+
+    def _device_tables(self):
+        """:meth:`sampler_tables` with ``coef`` on the device, uploaded once
+        a setting."""
+        ts, coef = self.sampler_tables()
+        return ts, self._cached(
+            ("coef", self.sampler, self.num_inference_steps),
+            lambda: torch.from_numpy(coef).to(self.device))
 
     def _stream(self):
         """The caller's current stream, where a call's device work goes
@@ -262,16 +416,13 @@ class Synthesizer:
         a CPU generator, so one seed gives the same x_T on every device.
         Every entry point draws its noise here."""
         mcfg = self.config.model
-        g = torch.Generator().manual_seed(seed)
-        return torch.randn((batch, mcfg.sample_size, mcfg.in_channels),
-                           generator=g)
+        return initial_noise(seed, (batch, mcfg.sample_size,
+                                    mcfg.in_channels))
 
     def _condition(self, ids, mask, prompt):
         """(context, speaker_emb or None) for ids/mask (and the prompt
         latents of the prompt family)."""
-        if self.prompted:
-            return self.model.encode_conditioning(ids, mask, prompt)
-        return self.model.encode_text(ids, mask), None
+        return self.condition_program().encode(ids, mask, prompt)
 
     @torch.no_grad()
     def denoise_latents(self, x_T: torch.Tensor, ids: torch.Tensor,
@@ -287,37 +438,12 @@ class Synthesizer:
         if self.prompted and prompt is None:
             raise ValueError("the prompt-conditioned model needs prompt "
                              "latents")
-        scope = full_f32() if self.dtype == torch.float32 else (
-            contextlib.nullcontext())
-        with scope:
-            context, speaker = self._condition(ids, mask, prompt)
-            s = self.guidance_scale
-            if s != 1.0:
-                null_ctx, null_spk = self._condition(
-                    torch.zeros_like(ids), torch.zeros_like(mask),
-                    None if prompt is None else torch.zeros_like(prompt))
-                context = torch.cat([context, null_ctx])
-                if speaker is not None:
-                    speaker = torch.cat([speaker, null_spk])
-            kv = cross_attention_kv(self.model.unet, context)
-
-            def model_eps(x, t):
-                if self.prompted:
-                    return self.model.denoise(x, t, context, speaker,
-                                              cross_kv=kv)
-                return self.model.denoise(x, t, context, cross_kv=kv)
-
-            def denoise(x, t):
-                if s == 1.0:
-                    return model_eps(x, t)
-                eps_c, eps_u = model_eps(torch.cat([x, x]),
-                                         torch.cat([t, t])).float().chunk(2)
-                return eps_u + s * (eps_c - eps_u)
-
-            sample = dpm_solver_sample if self.sampler == "dpm" else (
-                ddim_sample)
-            return sample(denoise, self.schedule, x_T,
-                          self.num_inference_steps)
+        ts, coef = self._device_tables()
+        with denoise_scope(self.dtype):
+            cond = self.condition_program()(
+                ids, mask, *((prompt,) if self.prompted else ()))
+            return run_steps(self.step_program(), cond, x_T, ts, coef,
+                             self.sampler)
 
     def prompt_latents(self, prompt_wav=None, prompt_codes=None
                        ) -> torch.Tensor:
@@ -337,28 +463,31 @@ class Synthesizer:
         fixed[:, :n] = lat[:, :n]
         return fixed
 
-    def _codes(self, texts, seed, x_T, prompt_wav, prompt_codes
-               ) -> torch.Tensor:
-        """Tokenize, draw x_T (unless given), denoise and round: int codes
-        ``[B, n_q, frames]`` on the device, on the current stream."""
+    def _latents(self, texts, seed, x_T, prompt_wav, prompt_codes
+                 ) -> torch.Tensor:
+        """Tokenize, draw x_T (unless given) and denoise: latents ``[B,
+        frames, n_q]`` on the device, on the current stream."""
         ids, mask = self.tokenizer.encode_batch(list(texts))
         prompt = (self.prompt_latents(prompt_wav, prompt_codes)
                   if self.prompted else None)
         if x_T is None:
             x_T = self.noise(seed, len(texts))
-        latents = self.denoise_latents(self._upload(x_T), self._upload(ids),
-                                       self._upload(mask), prompt)
-        return latents_to_codes(latents)
+        return self.denoise_latents(self._upload(x_T), self._upload(ids),
+                                    self._upload(mask), prompt)
+
+    def _codes(self, texts, seed, x_T, prompt_wav, prompt_codes
+               ) -> torch.Tensor:
+        """:meth:`_latents` rounded: int codes ``[B, n_q, frames]``."""
+        return latents_to_codes(self._latents(texts, seed, x_T, prompt_wav,
+                                              prompt_codes))
 
     @torch.no_grad()
     def _dispatch(self, texts, seed, x_T, prompt_wav, prompt_codes, pcm16):
         """Enqueue the whole program on the current stream: ``(wav, codes,
         event)`` on the device, the event (None on the CPU) recorded after
         the last kernel."""
-        codes = self._codes(texts, seed, x_T, prompt_wav, prompt_codes)
-        wav = self.codec_fast.decode(codes)
-        if pcm16:
-            wav = wav_to_pcm16(wav)
+        latents = self._latents(texts, seed, x_T, prompt_wav, prompt_codes)
+        wav, codes = self.finish_program(pcm16)(latents)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()

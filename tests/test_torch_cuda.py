@@ -18,6 +18,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from prompt_tts_tpu_torch import aot
 from prompt_tts_tpu_torch.config import Config, ModelConfig, TrainConfig
 from prompt_tts_tpu_torch.diffusion.schedule import linear_schedule
 from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
@@ -36,7 +37,8 @@ from prompt_tts_tpu_torch.ops.cuda.lstm import (
 )
 from prompt_tts_tpu_torch.ops.cuda.resnet import (
     TILES, TILES_F32, _launch as resnet_launch, fused_resnet_block,
-    fused_resnet_block_plain, split_planes,
+    fused_resnet_block_plain, pack_resnet_weights, packed_tensors,
+    split_planes,
 )
 from prompt_tts_tpu_torch.ops.resnet import (
     resnet_block, resnet_block_plain,
@@ -1198,3 +1200,90 @@ def test_bf16_decode_on_card(dev):
     for ref in (wav32, cpu16):
         err = ((wav16 - ref).norm() / ref.norm()).item()
         assert err <= CODEC_BF16_FRO, err
+
+
+def _op_cases(dev):
+    """(op, args, the eager wrapper's call) for each kernel's op on CUDA
+    tensors, at small shapes the kernels take."""
+    g = torch.Generator(dev).manual_seed(5)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bias = _qkv(dev, 2, 37, 45, 2, 64, dtype, masked=True)
+        cases.append(("flash_attention", (q, k, v, bias, False),
+                      lambda q=q, k=k, v=v, b=bias: (
+                          flash_attention(q, k, v, b),)))
+        cases.append(("flash_attention", (q, k, v, None, True),
+                      lambda q=q, k=k, v=v: flash_attention(
+                          q, k, v, None, return_lse=True)))
+    q, k, v, bias, o, lse, do = _bwd_case(dev, 2, 37, 45, 2, 64,
+                                          torch.float32, True)
+    for need in (False, True):
+        cases.append(("attention_bwd", (q, k, v, o, do, bias, lse, need),
+                      lambda n=need: attention_bwd(q, k, v, o, do, bias, lse,
+                                                   need_dbias=n)[:3 + n]))
+    x_proj = torch.randn(30, 4, 256, generator=g, device=dev)
+    w_hh = 0.1 * torch.randn(64, 256, generator=g, device=dev)
+    w_t = w_hh.t().contiguous()
+    cases.append(("lstm_recurrence", (x_proj, w_hh),
+                  lambda: (lstm_recurrence(x_proj, w_hh),)))
+    cases.append(("lstm_recurrence_t", (x_proj, w_t),
+                  lambda: (lstm_recurrence_t(x_proj, w_t),)))
+    emb = torch.randn(2, 50, 128, generator=g, device=dev)
+    cb = torch.randn(3, 128, 128, generator=g, device=dev)
+    cases.append(("rvq_encode", (emb, cb), lambda: (rvq_encode(emb, cb),)))
+    for dtype in (torch.float32, torch.bfloat16):
+        block = ResnetBlock1D(64, 128, 32, groups=8).to(dev).eval()
+        random_init_(block, torch.Generator().manual_seed(2))
+        pk = pack_resnet_weights(block, dtype)
+        x = torch.randn(2, 40, 64, generator=g, device=dev).to(dtype)
+        tp = torch.randn(2, 128, generator=g, device=dev)
+        cases.append(("fused_resnet_block",
+                      (x, tp, *packed_tensors(pk), 8, 1e-5),
+                      lambda x=x, tp=tp, pk=pk: (fused_resnet_block(
+                          x, tp, pk, 8, 1e-5),)))
+    return cases
+
+
+def test_ops_on_the_card(dev):
+    """Each kernel's ``ptts`` op on CUDA tensors: ``opcheck`` (schema, fake
+    against the kernel's outputs, AOT dispatch), and the same bits as the
+    eager wrapper, whose launcher it calls."""
+    cases = _op_cases(dev)
+    assert {c[0] for c in cases} == {
+        "flash_attention", "attention_bwd", "lstm_recurrence",
+        "lstm_recurrence_t", "rvq_encode", "fused_resnet_block"}
+    for op, args, eager in cases:
+        fn = getattr(torch.ops.ptts, op)
+        torch.library.opcheck(fn.default, args)
+        got, want = fn(*args), eager()
+        got = got if isinstance(got, tuple) else (got,)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), op
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aot_artifact_bit_equal_on_card(dev, tmp_path, dtype):
+    """A small artifact exported, saved and loaded on the card gives the
+    live Synthesizer's PCM and codes bit for bit (f32: under the same TF32
+    scopes), launching each kernel as often."""
+    synth = Synthesizer(config=Config(model=CARD_CFG), device=dev,
+                        dtype=dtype, num_inference_steps=3)
+    path = str(tmp_path / "card.ptts")
+    aot.export_synthesis(synth, len(TEXTS), path, pcm16=True)
+    prog = aot.SynthesisProgram(path)
+    runs = []
+    for run in (lambda: prog.synthesize(TEXTS, seed=1, return_codes=True),
+                lambda: synth.synthesize(TEXTS, seed=1, pcm16=True,
+                                         return_codes=True)):
+        flash_attention.launches = fused_resnet_block.launches = 0
+        lstm_recurrence_t.launches = 0
+        out = run()
+        runs.append((out, (flash_attention.launches,
+                           fused_resnet_block.launches,
+                           lstm_recurrence_t.launches)))
+    (got, got_codes), art = runs[0]
+    (want, want_codes), live = runs[1]
+    assert got.dtype == np.int16
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_codes, want_codes)
+    assert art == live and all(art), (art, live)
