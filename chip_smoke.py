@@ -136,7 +136,8 @@ Phases, each printed as one JSON object per line:
      block (``DDPM_LAYERS_PER_BLOCK``), 4 requests, bf16,
      1,000 steps and the decode (ms a step, x real time, the idle share
      over a 100-step schedule); a tiny config in f32 on the card against
-     the CPU with injected noise.
+     the CPU with injected noise over a 250-step schedule
+     (``DDPM_TINY_STEPS``).
   15b. codec_bf16: the same seeded codes [4, 8, 900] through the f32
      codec and the bf16 one over the same parameters
      (``Synthesizer(codec_dtype=torch.bfloat16)``'s decode): warm ms of
@@ -170,6 +171,19 @@ Phases, each printed as one JSON object per line:
   19. torchrun: ``torchrun --standalone --nproc_per_node 1 -m
      prompt_tts_tpu_torch.cli.train --multihost --smoke`` on ``TINY``:
      exit 0 and finite losses.
+  20. tp: tensor parallelism on the one card.  (a) 2 processes sharing it
+     over gloo at ``--tp 2`` (``tp_rank_main``), ``ModelConfig()`` at full
+     width, f32 (TF32 off) and bf16: a model forward, 3 train steps at
+     B=4 and a DDIM-10 synthesis of 2 requests, each held against this
+     process's unsharded program on the same weights (``TP_*`` tolerances),
+     kernels #1 and #2 launched at the local head counts (4 and 6) on
+     every rank, #6 not at all; (b) ``cli.train`` and ``cli.synthesize
+     --multihost --tp 1`` over NCCL at world size 1 (the checkpoint, codes
+     bit-equal to an in-process ``Synthesizer``); (c) ``cli.serve
+     --multihost --tp 2 --backend gloo`` (f32, DDIM-5, batch 1): one
+     request and a wave of 4 against the one-process server, the drain
+     releasing the follower.  gloo's times on one card, not a multi-card
+     figure.
 Then the phases' wall seconds (``phase_walls_s``), one
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.  Any failure raises (non-zero exit); without CUDA it exits non-zero
 before any result.
@@ -3337,6 +3351,10 @@ DDPM_TOL = 5e-4
 # step, and keeps the whole script within its time since the UNet's
 # variants and the bf16 decode joined it.
 DDPM_LAYERS_PER_BLOCK = 1
+# The tiny config's card-against-CPU chain runs a 250-step linear schedule
+# (the same sampler): a chain of 1,000 CPU steps was most of the phase's
+# time, which the script's time limit cannot spare
+DDPM_TINY_STEPS = 250
 # cli.profile's FLOPs of one stage, card (FlopCounterMode + the kernels'
 # formulas) against CPU (FlopCounterMode alone): relative
 PROFILE_FLOP_RTOL = 1e-2
@@ -4096,9 +4114,9 @@ def phase_ddpm(smi):
     k/v hoisted as ``Synthesizer`` does) at 4 requests over all 1,000 steps,
     then the f32 decode: finite latents, the launches, ms a step, x real
     time, and the idle share of the same step over a 100-step schedule.
-    Then the tiny config in f32 on the card against the CPU port, with the
-    same weights, x_T and injected noise.  Returns the launches of the
-    1,000-step run."""
+    Then the tiny config in f32 on the card against the CPU port over a
+    ``DDPM_TINY_STEPS``-step schedule, with the same weights, x_T and
+    injected noise.  Returns the launches of the 1,000-step run."""
     import torch
     from prompt_tts_tpu_torch.config import Config, ModelConfig
     from prompt_tts_tpu_torch.diffusion.ddpm import ddpm_sample
@@ -4154,20 +4172,28 @@ def phase_ddpm(smi):
     mcfg = ModelConfig(**TINY)
     g = torch.Generator().manual_seed(2)
     x_t = torch.randn((2, mcfg.sample_size, mcfg.in_channels), generator=g)
-    noise = torch.randn((T, *x_t.shape), generator=g)
+    noise = torch.randn((DDPM_TINY_STEPS, *x_t.shape), generator=g)
     ids_t = torch.randint(1, 149, (2, mcfg.cmu_seq_len), generator=g)
     mask_t = torch.ones_like(ids_t)
     mask_t[1, 20:] = 0
     out = {}
-    for d in ("cuda", "cpu"):
-        model = TTSSingleSpeaker(mcfg, device=d)
-        random_init_(model, torch.Generator().manual_seed(0))
-        model.eval()
-        with torch.no_grad(), full_f32():
-            c = model.encode_text(ids_t.to(d), mask_t.to(d))
-            out[d] = ddpm_sample(
-                lambda x, t: model.denoise(x, t, c), linear_schedule(
-                    T, device=d), x_t.to(d), noise=noise.to(d)).cpu()
+    threads = torch.get_num_threads()
+    try:
+        for d in ("cuda", "cpu"):
+            # the tiny model's CPU ops are too small to split over the
+            # thread pool: one thread runs the 1,000 CPU steps
+            torch.set_num_threads(1 if d == "cpu" else threads)
+            model = TTSSingleSpeaker(mcfg, device=d)
+            random_init_(model, torch.Generator().manual_seed(0))
+            model.eval()
+            with torch.no_grad(), full_f32():
+                c = model.encode_text(ids_t.to(d), mask_t.to(d))
+                out[d] = ddpm_sample(
+                    lambda x, t: model.denoise(x, t, c), linear_schedule(
+                        DDPM_TINY_STEPS, device=d), x_t.to(d),
+                    noise=noise.to(d)).cpu()
+    finally:
+        torch.set_num_threads(threads)
     err = (out["cuda"] - out["cpu"]).abs().max().item()
     codes_card, codes_cpu = (latents_to_codes(out[d]) for d in ("cuda",
                                                                 "cpu"))
@@ -4184,7 +4210,8 @@ def phase_ddpm(smi):
     emit({"phase": "ddpm", "what": f"ddpm_sample ModelConfig() widths at "
           f"{DDPM_LAYERS_PER_BLOCK} layer a block, bf16 "
           f"B={N_REQUESTS}, {T} steps, then the f32 decode; tiny config f32 "
-          f"card vs CPU with injected noise", "checks": checks,
+          f"card vs CPU with injected noise over {DDPM_TINY_STEPS} steps",
+          "checks": checks,
           "sample_s": sample_s, "ms_per_step": sample_s * 1e3 / T,
           "decode_s": decode_s,
           "x_realtime": audio_s / (sample_s + decode_s),
@@ -4757,6 +4784,33 @@ def ddp_rank_main(out):
         json.dump(res, f)
 
 
+def _spawn_ranks(argv, n, env, cwd):
+    """``n`` processes of ``argv``, ``PTTS_PROCESS_ID`` 0 .. n-1."""
+    return [subprocess.Popen(argv, cwd=cwd, env=dict(
+        env, PTTS_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+
+
+def _reap(procs, timeout, what):
+    """Wait for ``procs`` (those still running at ``timeout`` are killed);
+    raise naming each that failed; their logs."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [f"rank {r} exited {p.returncode}:\n{log[-3000:]}"
+              for r, (p, log) in enumerate(zip(procs, logs))
+              if p.returncode != 0]
+    if failed:
+        raise AssertionError(f"{what}: " + "\n".join(failed))
+    return logs
+
+
 def phase_ddp_two_ranks(smi, tmp):
     """Two processes on the one card over gloo (``ddp_rank_main``), the
     flagship's widths at ``DDP_LAYERS_PER_BLOCK``, global batch 32 (16 a
@@ -4782,27 +4836,11 @@ def phase_ddp_two_ranks(smi, tmp):
                PTTS_NUM_PROCESSES=str(DDP_RANKS),
                PYTHONPATH=os.pathsep.join(
                    [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    argv = [sys.executable, "-c",
-            f"import chip_smoke; chip_smoke.ddp_rank_main({out!r})"]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(argv, cwd=here, env=dict(
-        env, PTTS_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(DDP_RANKS)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=600)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    _reap(_spawn_ranks([sys.executable, "-c", f"import chip_smoke; "
+                        f"chip_smoke.ddp_rank_main({out!r})"],
+                       DDP_RANKS, env, here), 600, "ddp_two_ranks")
     ranks_s = time.perf_counter() - t0
-    failed = [f"rank {r} exited {p.returncode}:\n{log[-3000:]}"
-              for r, (p, log) in enumerate(zip(procs, logs))
-              if p.returncode != 0]
-    if failed:
-        raise AssertionError("ddp_two_ranks: " + "\n".join(failed))
     ranks = []
     for r in range(DDP_RANKS):
         with open(os.path.join(out, f"rank{r}.json")) as f:
@@ -4909,6 +4947,639 @@ def phase_torchrun(smi, tmp):
     if not all(checks.values()):
         raise AssertionError(f"torchrun checks failed: {checks}\n"
                              f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+
+
+TP_RANKS = 2
+TP_BATCH = 4
+TP_STEPS = 3
+TP_SYNTH_STEPS = 10
+# requests of the tp phase's synthesis: the batch its kernel #1 calls see
+TP_SYNTH_BATCH = 2
+TP_SERVE_STEPS = 5
+# Two gloo ranks sharing the card against one process on it, the same
+# weights and inputs; every row-parallel product is summed in two halves
+# and the resnet blocks run the module arithmetic (kernel #6 is not on
+# the tp > 1 path), so the f32 gaps are rounding's (TF32 off): the model's
+# forward 1e-4 in relative Frobenius norm, each step's loss 1e-5 relative
+# (DDP_F32_LOSS_RTOL) and so is each step's global gradient norm, the
+# first step's gradient 1e-5 relative over the whole model (the CPU
+# tests' RANKS_GRAD_RTOL) and each tensor's 1e-4 of its own norm plus
+# ZERO_GRAD of the whole gradient's (a tensor whose gradient is zero in
+# exact arithmetic, a bias in front of a GroupNorm, is rounding noise on
+# both sides), the whole update after 3 steps 1e-2 relative (the CPU
+# tests' UPDATE_RTOL), the synthesis latents 2e-4 (JAX's own TP
+# tolerance, tests/test_tp.py) with codes agreeing in more than 99 % of
+# places.  bf16 rounds each half: the forward and the latents 3e-2
+# relative (RESNET_TOL_BF16's scale) and so is the first step's whole
+# gradient, each tensor's gradient 0.1 of its norm (plus ZERO_GRAD of the
+# whole's), the losses and the gradient norms 2e-2 (DDP_BF16_LOSS_RTOL),
+# the update 5e-2.  (On an H100: f32 gradients 1.3e-6 whole, 3.3e-6 in
+# the worst tensor; bf16 8.7e-3 and 2.3e-2.)  The
+# AdamW update moves each element by about lr * sign(g) whatever the
+# gradient's scale, so the gradients are held, not only the update.
+TP_F32_FWD_RTOL = 1e-4
+TP_F32_LOSS_RTOL = 1e-5
+TP_F32_GRAD_RTOL, TP_F32_TENSOR_GRAD_RTOL = 1e-5, 1e-4
+TP_F32_UPDATE_RTOL = 1e-2
+TP_F32_LATENT_ATOL = 2e-4
+TP_CODE_AGREE = 0.99
+TP_BF16_FWD_RTOL = 3e-2
+TP_BF16_LOSS_RTOL = 2e-2
+TP_BF16_GRAD_RTOL, TP_BF16_TENSOR_GRAD_RTOL = 3e-2, 0.1
+TP_BF16_UPDATE_RTOL = 5e-2
+# cli.serve --tp 2 (f32, DDIM-5, batch 1) against the one-process
+# server: a flipped code (JAX's contract allows 1 %) changes the decode
+# from its frame on, so the PCM is held in relative Frobenius norm, to
+# half the gap between two different requests' PCM (the same text at two
+# seeds: 1.03 on an H100) and at most 0.1 (sound runs: 0.018-0.040), and
+# at least half of each answer's samples are bit-equal to the one
+# process's (sound runs: 0.86-0.97); the same text at two seeds is the
+# control, its gap and equal share printed beside them
+TP_SERVE_PCM_RTOL = 0.1
+TP_SERVE_EQUAL_SHARE = 0.5
+# more cli.serve arguments (none: ModelConfig() on the card)
+TP_SERVE_ARGV = []
+TP_SERVE_REQUESTS = [(TEXTS[0], 3)] + [(TEXTS[i % len(TEXTS)], 20 + i)
+                                       for i in range(4)]
+
+
+def _tp_config():
+    """``ModelConfig()`` at full width with the text encoder's dropout off
+    (the ranks and one process then draw alike), the tp phase's batch."""
+    from prompt_tts_tpu_torch.config import Config
+    cfg = Config()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, text_encoder_dropout=0.0),
+        train=dataclasses.replace(cfg.train, batch_size=TP_BATCH,
+                                  num_train_epochs=1))
+
+
+def _tp_state(cfg):
+    """The full-width weights every rank and the one process start from,
+    drawn on the CPU from a seed."""
+    from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
+    from prompt_tts_tpu_torch.pipeline import random_init_
+    import torch
+    return random_init_(TTSSingleSpeaker(cfg.model),
+                        torch.Generator().manual_seed(5)).state_dict()
+
+
+def _tp_case(device, dtype, cfg, state, log_dir):
+    """One model forward on the first batch at fixed timesteps, 3 train
+    steps from ``state`` (the losses, the gradient norms, the first step's
+    gradients and the update's squares by tensor, of this rank's slices),
+    then a DDIM-10 synthesis of 2 requests (latents, then the decode:
+    codes): what this process computes, sharded or not."""
+    import torch
+    from prompt_tts_tpu_torch.data.dataset import SyntheticDataset
+    from prompt_tts_tpu_torch.parallel import model_rank, model_size
+    from prompt_tts_tpu_torch.parallel.tp import shard_state
+    from prompt_tts_tpu_torch.pipeline import Synthesizer, full_f32
+    from prompt_tts_tpu_torch.train.loop import Trainer
+    f32 = dtype == torch.float32
+    scope = full_f32 if f32 else contextlib.nullcontext
+    out = {}
+    ds = SyntheticDataset(n=TP_BATCH * TP_STEPS, frames=cfg.model.sample_size,
+                          max_seq_length=cfg.model.cmu_seq_len)
+    tr = Trainer(cfg, ds, log_dir=log_dir, device=device, dtype=dtype,
+                 init_state=state, log_every=1)
+    batch = next(ds.batches(TP_BATCH))
+    b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    t = torch.tensor([0, 250, 500, 999], device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), scope():
+        tr.model.eval()
+        out["forward"] = tr.model(b["codes"], t, b["text_ids"],
+                                  b["text_mask"]).float().cpu()
+    torch.cuda.synchronize()
+    out["forward_s"] = time.perf_counter() - t0
+    losses, norms, step_s, grads = [], [], [], []
+    apply = tr.state.apply_gradients
+
+    def snapshot():     # the first step's gradients, before the clip
+        if not grads:
+            grads.append({n: p.grad.detach().cpu() for n, p in
+                          zip(tr.state.names, tr.state.params)})
+        return apply()
+    tr.state.apply_gradients = snapshot
+    with scope():
+        for bt in ds.batches(TP_BATCH):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(bt)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            step_s.append(time.perf_counter() - t0)
+    init = shard_state(state, model_rank(), model_size())
+    out.update(losses=losses, grad_norms=norms, step_s=step_s,
+               grad=grads[0], update_sq={n: float(((p.detach().float().cpu()
+                                     - init[n].float()) ** 2).sum())
+                          for n, p in tr.model.named_parameters()},
+               sharded=[n for n, p in tr.model.named_parameters()
+                        if hasattr(p, "tp_dim")])
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    synth = Synthesizer(config=cfg, device=device, dtype=dtype,
+                        num_inference_steps=TP_SYNTH_STEPS,
+                        model_state=state)
+    ids, mask = synth.tokenizer.encode_batch(TEXTS[:TP_SYNTH_BATCH])
+    x_T = synth.noise(7, TP_SYNTH_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    latents = synth.denoise_latents(
+        x_T.to(device), torch.from_numpy(ids).to(device),
+        torch.from_numpy(mask).to(device))
+    _, codes = synth.finish_program(False)(latents)
+    torch.cuda.synchronize()
+    out["synth_s"] = time.perf_counter() - t0
+    out["latents"] = latents.float().cpu()
+    out["codes"] = codes.cpu().numpy()
+    out["tp"] = synth.tp
+    del synth
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _recording_heads():
+    """Record the head count of every launch of kernels #1 and #2 (their
+    modules' ``_launch``, which each wrapper calls where it launches), by
+    kernel; the wrappers and their counts are untouched."""
+    from prompt_tts_tpu_torch.ops.cuda import attention, attention_bwd
+    heads = {"attention_fwd": set(), "attention_bwd": set()}
+    mods = {"attention_fwd": attention, "attention_bwd": attention_bwd}
+    orig = {k: m._launch for k, m in mods.items()}
+
+    def recording(key):
+        def launch(q, *a):
+            heads[key].add(q.shape[2])
+            return orig[key](q, *a)
+        return launch
+    for k, m in mods.items():
+        m._launch = recording(k)
+    try:
+        yield heads
+    finally:
+        for k, m in mods.items():
+            m._launch = orig[k]
+
+
+def tp_rank_main(out):
+    """One rank of :func:`phase_tp` (a process of its own, started with
+    the ``PTTS_*`` variables): gloo, since both ranks share the one card,
+    a model axis of 2; both dtypes of :func:`_tp_case`; its results go to
+    ``rank<r>.pt``."""
+    import torch
+    from prompt_tts_tpu_torch.parallel import (
+        barrier, init_distributed, model_rank, model_size, world_rank,
+    )
+    device = init_distributed(DEVICE, backend="gloo", n_model=TP_RANKS)
+    rank = world_rank()
+    res = {"rank": rank, "device": str(device),
+           "backend": torch.distributed.get_backend(),
+           "model": (model_rank(), model_size())}
+    cfg = _tp_config()
+    state = _tp_state(cfg)
+    zero_counts()
+    with _recording_heads() as heads:
+        for name, dtype in (("f32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            res[name] = _tp_case(device, dtype, cfg, state,
+                                 os.path.join(out, f"{name}_{rank}"))
+    res["launches"] = counts()
+    res["heads"] = {k: sorted(v) for k, v in heads.items()}
+    barrier()
+    torch.distributed.destroy_process_group()
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def _rel_gap(a, b):
+    import torch
+    return float(torch.linalg.vector_norm(a.float() - b.float())
+                 / torch.linalg.vector_norm(b.float()))
+
+
+def _tp_grads(a, b, o, tensor_rtol):
+    """The first step's gradients of the ranks ``a`` and ``b``, gathered,
+    against one process's ``o``: (the relative gap over the whole model,
+    the tensors whose gap exceeds ``tensor_rtol`` of their own norm plus
+    ZERO_GRAD of the whole's with their gaps, the largest such gap by
+    tensor's norm, the largest gap between the ranks' replicated
+    tensors)."""
+    import torch
+    from prompt_tts_tpu_torch.parallel.tp import gather_state
+    one = {n: g.float() for n, g in o["grad"].items()}
+    tp = gather_state([a["grad"], b["grad"]],
+                      {n: g.shape for n, g in one.items()})
+
+    def norm(t):
+        return float(torch.linalg.vector_norm(t.float()))
+    whole = math.sqrt(sum(norm(g) ** 2 for g in one.values()))
+    diff = {n: norm(tp[n].float() - one[n]) for n in one}
+    whole_gap = math.sqrt(sum(d ** 2 for d in diff.values())) / whole
+    floor = ZERO_GRAD * whole
+    rel = {n: diff[n] / max(norm(one[n]), floor) for n in one}
+    over = {n: rel[n] for n in one
+            if diff[n] > tensor_rtol * norm(one[n]) + floor}
+    replicated = max(norm(a["grad"][n].float() - b["grad"][n].float())
+                     / max(norm(one[n]), floor)
+                     for n in one if n not in a["sharded"])
+    return whole_gap, over, max(rel.values()), replicated
+
+
+def _tp_hold(name, ranks, one):
+    """The checks and figures of one dtype: the ranks against each other
+    and against one process."""
+    import torch
+    f32 = name == "f32"
+    a, b = (r[name] for r in ranks)
+    o = one[name]
+    grad_gap, grad_over, tensor_gap, ranks_grad_gap = _tp_grads(
+        a, b, o, TP_F32_TENSOR_GRAD_RTOL if f32 else TP_BF16_TENSOR_GRAD_RTOL)
+    norm_gap = max(abs(x - y) / y for x, y in zip(a["grad_norms"],
+                                                  o["grad_norms"]))
+    upd_tp = math.sqrt(sum(a["update_sq"][n] + (b["update_sq"][n]
+                                                 if n in a["sharded"] else 0)
+                           for n in a["update_sq"]))
+    upd_one = math.sqrt(sum(o["update_sq"].values()))
+    fwd_gap = _rel_gap(a["forward"], o["forward"])
+    loss_gap = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                       o["losses"]))
+    lat_gap = (float((a["latents"] - o["latents"]).abs().max()) if f32
+               else _rel_gap(a["latents"], o["latents"]))
+    agree = float((a["codes"] == o["codes"]).mean())
+    figures = {"forward_rel_gap": fwd_gap, "loss_rel_gap": loss_gap,
+               "losses": {"tp2": a["losses"], "one": o["losses"]},
+               "grad_norm": {"tp2": a["grad_norms"], "one": o["grad_norms"]},
+               "grad_norm_rel_gap": norm_gap, "grad_rel_gap": grad_gap,
+               "grad_tensor_rel_gap_max": tensor_gap,
+               "grad_tensors_over": grad_over,
+               "grad_replicated_ranks_gap": ranks_grad_gap,
+               "update_norm": {"tp2": upd_tp, "one": upd_one},
+               "latent_gap": lat_gap, "code_agreement": agree,
+               "walls_s": {"tp2": {k: a[k] for k in ("forward_s", "step_s",
+                                                     "synth_s")},
+                           "one": {k: o[k] for k in ("forward_s", "step_s",
+                                                     "synth_s")}}}
+    checks = {
+        f"{name}_ranks_agree": torch.equal(a["forward"], b["forward"])
+        and a["losses"] == b["losses"]
+        and torch.equal(a["latents"], b["latents"]),
+        f"{name}_sharded": a["tp"] == 2 and len(a["sharded"]) > 0,
+        f"{name}_forward": fwd_gap <= (TP_F32_FWD_RTOL if f32
+                                       else TP_BF16_FWD_RTOL),
+        f"{name}_losses": loss_gap <= (TP_F32_LOSS_RTOL if f32
+                                       else TP_BF16_LOSS_RTOL),
+        f"{name}_grad_norms": norm_gap <= (TP_F32_LOSS_RTOL if f32
+                                           else TP_BF16_LOSS_RTOL),
+        f"{name}_grads": grad_gap <= (TP_F32_GRAD_RTOL if f32
+                                      else TP_BF16_GRAD_RTOL)
+        and not grad_over and ranks_grad_gap <= (
+            TP_F32_TENSOR_GRAD_RTOL if f32 else TP_BF16_TENSOR_GRAD_RTOL),
+        f"{name}_update": abs(upd_tp - upd_one) / upd_one <= (
+            TP_F32_UPDATE_RTOL if f32 else TP_BF16_UPDATE_RTOL),
+        f"{name}_latents": lat_gap <= (TP_F32_LATENT_ATOL if f32
+                                       else TP_BF16_FWD_RTOL),
+    }
+    if f32:
+        checks["f32_codes"] = agree > TP_CODE_AGREE
+    return checks, figures
+
+
+def _tp_attention(smi):
+    """Kernels #1 and #2 at the tp 2 path's local head counts (4 of the
+    UNet's 8 heads, 6 of the text encoder's 12), f32 and bf16, against
+    their plain versions at the kernel phases' tolerances: the forward
+    with the lse and the backward at the train steps' B=4 (``_hold_call``;
+    the text mask's bias takes no gradient, as on the path), the forward
+    alone at the synthesis's B=2 (``_fwd_check``).  Checked, not timed.
+    Returns the errors by case; raises if one misses."""
+    import torch
+    from prompt_tts_tpu_torch.ops.cuda.attention import flash_attention
+    from prompt_tts_tpu_torch.ops.cuda.attention_bwd import attention_bwd
+    g = torch.Generator("cuda").manual_seed(17)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for label, Tq, Tk, H, D, masked, _ in attn_cases():
+            H //= TP_RANKS
+            label = f"{label} H={H}"
+            q, k, v, bias = attn_inputs(g, TP_BATCH, Tq, Tk, H, D, masked,
+                                        dtype)
+            do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+            with torch.no_grad():
+                o, lse = flash_attention(q, k, v, bias, return_lse=True)
+            grads = attention_bwd(q, k, v, o, do, bias, lse,
+                                  need_dbias=False)
+            train, tok = _hold_call(q, k, v, bias, o, lse, do, grads)
+            q, k, v, bias = attn_inputs(g, TP_SYNTH_BATCH, Tq, Tk, H, D,
+                                        masked, dtype)
+            with torch.no_grad():
+                out = flash_attention(q, k, v, bias)
+                err, fro, sok = _fwd_check(out, q, k, v, bias)
+            res[f"{dname} {label}"] = r = {
+                f"B={TP_BATCH} fwd+lse+bwd": train,
+                f"B={TP_SYNTH_BATCH} fwd": {"max_abs_err": err,
+                                            "fro_err": fro}}
+            emit({"phase": "kernel", "kernel": "attention_fwd+bwd",
+                  "case": f"tp {TP_RANKS} local heads: {label}",
+                  "dtype": dname, **r, "tol": {"fwd": _fwd_tol(dtype),
+                                               "bwd": _bwd_tol(dtype)},
+                  "ok": tok and sok, "card": smi})
+            if not (tok and sok):
+                raise AssertionError(f"attention at tp {TP_RANKS}'s local "
+                                     f"heads, {label} {dname}: {r}")
+            del q, k, v, bias, do, o, lse, grads, out
+    return res
+
+
+def _tp_cli_nccl(tmp):
+    """``cli.train`` then ``cli.synthesize``, each ``--multihost --tp 1``
+    over NCCL at world size 1 in this process, on ``TINY``: the groups,
+    rank 0's checkpoint, and codes bit-equal to an in-process
+    ``Synthesizer`` on the checkpoint's state.  Returns (checks, the
+    synthesis's launches)."""
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.cli import synthesize as synth_cli
+    from prompt_tts_tpu_torch.cli import train as train_cli
+    from prompt_tts_tpu_torch.cli._common import restore_model_state
+    from prompt_tts_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from prompt_tts_tpu_torch.pipeline import Synthesizer
+    cfg = Config(model=ModelConfig(**TINY),
+                 train=TrainConfig(batch_size=8, num_train_epochs=1,
+                                   learning_rate=1e-3, lr_warmup_steps=0))
+    cfg_path = os.path.join(tmp, "tp_tiny.json")
+    cfg.to_json(cfg_path)
+    ckpt, log_dir = (os.path.join(tmp, "tp_nccl_ckpt"),
+                     os.path.join(tmp, "tp_nccl_log"))
+    env = {"PTTS_NUM_PROCESSES": "1", "PTTS_PROCESS_ID": "0"}
+    try:
+        os.environ.update(env, PTTS_COORDINATOR=f"127.0.0.1:{_free_port()}")
+        trainer = train_cli.main(["--multihost", "--tp", "1", "--smoke",
+                                  "--device", DEVICE,
+                                  "--config_file", cfg_path, "--log_every",
+                                  "1", "--log_dir", log_dir, "--ckpt_dir",
+                                  ckpt])
+        backend_ok = not torch.distributed.is_initialized()
+        os.environ["PTTS_COORDINATOR"] = f"127.0.0.1:{_free_port()}"
+        zero_counts()
+        _, _, codes = synth_cli.main(
+            ["--multihost", "--tp", "1", "--device", DEVICE,
+             "--config_file", cfg_path,
+             "--ckpt_dir", ckpt, "--steps", "10", "--text", TEXTS[0],
+             "--text", TEXTS[1], "--out", os.path.join(tmp, "tp_nccl.wav")])
+        torch.cuda.synchronize()
+        launches = counts()
+    finally:
+        for k in ("PTTS_COORDINATOR", *env):
+            os.environ.pop(k, None)
+    state, step = restore_model_state(ckpt, cfg)
+    ref = Synthesizer(config=cfg, device=DEVICE, num_inference_steps=10,
+                      model_state=state)
+    _, ref_codes = ref.synthesize(TEXTS[:2], return_codes=True)
+    losses = _logged(log_dir, "Loss/train")
+    checks = {"nccl_cli_train": trainer.global_step == 2 and step == 2
+              and sorted(losses) == [1, 2]
+              and all(map(math.isfinite, losses.values())),
+              "nccl_groups_released": backend_ok,
+              "nccl_cli_synthesize_bits": np.array_equal(codes, ref_codes),
+              "nccl_cli_synthesize_wavs": all(os.path.exists(os.path.join(
+                  tmp, f"tp_nccl_{i}.wav")) for i in range(2))}
+    return checks, launches
+
+
+def _serve_pcm(port, requests):
+    """One request alone, then the rest at once: {request: PCM}."""
+    import threading
+    import numpy as np
+    out = {}
+
+    def post(r):
+        status, body, _ = _http(port, "POST", "/synthesize",
+                                {"text": r[0], "seed": r[1]})
+        if status != 200:
+            raise AssertionError(f"serve {r}: {status} {body[:200]!r}")
+        out[r] = np.frombuffer(_wav_pcm(body), "<i2")
+    post(requests[0])
+    threads = [threading.Thread(target=post, args=(r,))
+               for r in requests[1:]]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    return out
+
+
+def _tp_serve_argv():
+    return ["--steps", str(TP_SERVE_STEPS), "--max_batch", "1", "--dtype",
+            "f32", "--device", DEVICE] + TP_SERVE_ARGV
+
+
+def _tp_serve_start(here, env):
+    """Start ``cli.serve --multihost --tp 2 --backend gloo`` as two
+    processes on the card (f32, DDIM-5, batch 1, ``ModelConfig()``):
+    (the processes, rank 0's port, the start time)."""
+    port = _free_port()
+    procs = _spawn_ranks(
+        [sys.executable, "-m", "prompt_tts_tpu_torch.cli.serve",
+         "--multihost", "--tp", "2", "--backend", "gloo", "--port",
+         str(port)] + _tp_serve_argv(),
+        TP_RANKS, dict(env, PTTS_COORDINATOR=f"127.0.0.1:{_free_port()}"),
+        here)
+    return procs, port, time.perf_counter()
+
+
+def _tp_serve(procs, port, t0):
+    """The servers of :func:`_tp_serve_start`, once rank 0 answers: one
+    request and a wave of 4 over HTTP, held against the one-process
+    server in this process; SIGTERM to rank 0, whose drain releases rank
+    1."""
+    import signal
+    import numpy as np
+    argv = _tp_serve_argv()
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            if any(p.poll() is not None for p in procs):
+                _reap(procs, 10, "tp serve")
+            try:
+                if _http(port, "GET", "/healthz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise AssertionError("tp serve: rank 0 never answered")
+            time.sleep(0.5)
+        # from the start to rank 0's first answer, beside (a) and (b)
+        ready_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tp_pcm = _serve_pcm(port, TP_SERVE_REQUESTS)
+        tp_s = time.perf_counter() - t0
+        procs[0].send_signal(signal.SIGTERM)
+        logs = _reap(procs, 120, "tp serve")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    server, sport, thread = _start_server(["--port", "0"] + argv)
+    try:
+        t0 = time.perf_counter()
+        one_pcm = _serve_pcm(sport, TP_SERVE_REQUESTS)
+        one_s = time.perf_counter() - t0
+    finally:
+        _stop_server(server, thread)
+    import torch
+    def gap(x, y):      # a length that differs fails the check
+        if len(x) != len(y):
+            return math.inf
+        return _rel_gap(torch.from_numpy(x.astype(np.float32)),
+                        torch.from_numpy(y.astype(np.float32)))
+    gaps = {f"{t[:12]}|{s}": gap(tp_pcm[(t, s)], one_pcm[(t, s)])
+            for t, s in TP_SERVE_REQUESTS}
+    # the same text at two seeds: how far apart two answers lie
+    a, b = (one_pcm[r].astype(np.float32) for r in TP_SERVE_REQUESTS[:2])
+    n_ab = min(len(a), len(b))
+    apart = _rel_gap(torch.from_numpy(a[:n_ab]), torch.from_numpy(b[:n_ab]))
+    apart_equal = float((a[:n_ab] == b[:n_ab]).mean())
+    equal = {k: float((tp_pcm[r] == one_pcm[r]).mean())
+             if len(tp_pcm[r]) == len(one_pcm[r]) else 0.0
+             for k, r in zip(gaps, TP_SERVE_REQUESTS)}
+    # the warmup's 2 denoises and one a request (or a window of one)
+    followed = re.findall(r"rank 0 shut down after (\d+) denoises", logs[1])
+    checks = {"serve_pcm": all(g <= min(TP_SERVE_PCM_RTOL, apart / 2)
+                               for g in gaps.values()),
+              "serve_equal_share": all(e >= TP_SERVE_EQUAL_SHARE
+                                       for e in equal.values()),
+              "serve_drained": "drained; exiting" in logs[0],
+              "serve_followed": bool(followed) and int(followed[0])
+              >= 2 + len(TP_SERVE_REQUESTS)}
+    return checks, {"pcm_rel_gap": gaps, "two_requests_rel_gap": apart,
+                    "two_requests_equal_share": apart_equal,
+                    "denoises_followed": followed,
+                    "equal_share": equal, "ready_s": ready_s,
+                    "requests_s": {"tp2": tp_s, "one": one_s}}
+
+
+def phase_tp(smi, tmp):
+    """Tensor parallelism on one card: (a) two processes sharing it over
+    gloo at ``--tp 2`` (``tp_rank_main``), ``ModelConfig()`` at full
+    width, f32 (TF32 off) and bf16: one model forward, 3 train steps at
+    B=4, a DDIM-10 synthesis of 2 requests, each held against this
+    process's unsharded program on the same weights and inputs, kernels #1
+    and #2 launched at the local head counts (4 of the UNet's 8, 6 of the
+    text encoder's 12) on every rank and #6 not at all (a sharded block
+    runs the module arithmetic), and both kernels held against their plain
+    versions at those heads and the path's batches (``_tp_attention``);
+    (b) ``cli.train`` and ``cli.synthesize``
+    ``--multihost --tp 1`` over NCCL at world size 1; (c) ``cli.serve
+    --tp 2`` as two gloo processes against the one-process server.  A
+    gather is an all-reduce of a zero-filled whole buffer (exact).  Times are gloo's on one card, through host memory: not a
+    multi-card figure.  Returns the launches summed over the ranks."""
+    import torch
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "tp_ranks")
+    os.makedirs(out)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PTTS_NUM_PROCESSES=str(TP_RANKS),
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    # the servers of (c) start first: their start-up overlaps (a) and (b)
+    serve_procs = _tp_serve_start(here, env)
+    try:
+        return _tp_checked(smi, tmp, out, here, env, serve_procs, t_phase)
+    finally:
+        for p in serve_procs[0]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _tp_checked(smi, tmp, out, here, env, serve_procs, t_phase):
+    """The body of :func:`phase_tp`, with (c)'s servers started."""
+    import torch
+    from prompt_tts_tpu_torch.pipeline import full_f32
+    t0 = time.perf_counter()
+    procs = _spawn_ranks(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.tp_rank_main({out!r})"],
+        TP_RANKS, dict(env, PTTS_COORDINATOR=f"127.0.0.1:{_free_port()}"),
+        here)
+    try:
+        # the unsharded references meanwhile, on the same card
+        cfg = _tp_config()
+        state = _tp_state(cfg)
+        with _recording_heads() as one_heads:
+            one = {name: _tp_case(DEVICE, dtype, cfg, state,
+                                  os.path.join(tmp, f"tp_one_{name}"))
+                   for name, dtype in (("f32", torch.float32),
+                                       ("bf16", torch.bfloat16))}
+        del state
+        # the kernels at the ranks' shapes against their plain versions
+        with full_f32():
+            attention = _tp_attention(smi)
+        _reap(procs, 600, "tp ranks")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(TP_RANKS)]
+    checks, figures = {}, {}
+    for name in ("f32", "bf16"):
+        c, figures[name] = _tp_hold(name, ranks, one)
+        checks.update(c)
+    checks["gloo_on_one_card"] = all(
+        r["backend"] == "gloo" and r["device"] == "cuda:0"
+        and r["model"] == (i, TP_RANKS) for i, r in enumerate(ranks))
+    checks["local_heads"] = all(
+        r["heads"] == {"attention_fwd": [4, 6], "attention_bwd": [4, 6]}
+        for r in ranks) and one_heads == {"attention_fwd": {8, 12},
+                                          "attention_bwd": {8, 12}}
+    checks["launched"] = all(
+        r["launches"]["attention_fwd"] > 0
+        and r["launches"]["attention_bwd"] > 0
+        and r["launches"]["resnet"] == 0
+        and r["launches"]["lstm_t" if _default_lstm() == "persistent"
+                          else "lstm"] > 0 for r in ranks)
+    t0 = time.perf_counter()
+    c, nccl_launches = _tp_cli_nccl(tmp)
+    checks.update(c)
+    nccl_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c, serve = _tp_serve(*serve_procs)
+    checks.update(c)
+    serve["after_the_ranks_s"] = time.perf_counter() - t0
+    emit({"phase": "tp", "what": f"(a) {TP_RANKS} processes on one card "
+          f"over gloo at --tp 2, ModelConfig(), f32 and bf16: a forward, "
+          f"{TP_STEPS} steps at B={TP_BATCH}, DDIM-{TP_SYNTH_STEPS} of 2 "
+          f"requests, against one process; (b) cli.train and cli.synthesize "
+          f"--multihost --tp 1 over NCCL at world size 1; (c) cli.serve "
+          f"--tp 2 (f32, DDIM-{TP_SERVE_STEPS}, batch 1) against the "
+          f"one-process server", "checks": checks, "figures": figures,
+          "local_head_kernels": attention,
+          "heads": [r["heads"] for r in ranks],
+          "launches": [r["launches"] for r in ranks],
+          "nccl_launches": nccl_launches, "serve": serve,
+          "ranks_s": ranks_s, "nccl_s": nccl_s,
+          "phase_s": time.perf_counter() - t_phase, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"tp checks failed: {checks}")
+    return {k: sum(r["launches"][k] for r in ranks) + nccl_launches[k]
+            for k in KERNELS}
+
+
+def _default_lstm():
+    from prompt_tts_tpu_torch.codec.layers import DEFAULT_LSTM_SCHEDULE
+    return DEFAULT_LSTM_SCHEDULE
 
 
 def f32_times(smi):
@@ -5138,6 +5809,7 @@ def main():
         ddp_nccl = timed(phase_ddp_nccl)(smi, tmp)
         ddp_ranks = timed(phase_ddp_two_ranks)(smi, tmp)
         timed(phase_torchrun)(smi, tmp)
+        tp = timed(phase_tp)(smi, tmp)
     rvq["differ"]["prompt_latents"] = prompt_rvq_res["differ"]
     rvq["max_abs_err"] = max(rvq["max_abs_err"],
                              prompt_rvq_res["max_score_gap"], serve_rvq_gap)
@@ -5157,7 +5829,7 @@ def main():
                  "export": exported[k], "aot": aot_art[k], "ddpm": ddpm[k],
                  "profile": profiled[k], "ddp_nccl": ddp_nccl[k],
                  "ddp_two_ranks": ddp_ranks[k], "codec_bf16": codec_bf16[k],
-                 "unet_variants": variants[k]} for k in KERNELS}
+                 "unet_variants": variants[k], "tp": tp[k]} for k in KERNELS}
     launches = {k: sum(p.values()) for k, p in paths.items()}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the paths never ran: {launches}")

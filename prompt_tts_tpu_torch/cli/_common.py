@@ -1,9 +1,12 @@
-"""Shared CLI helpers: the checkpoint restore of the inference entry points.
+"""Shared CLI helpers: the checkpoint restore of the inference entry points,
+and the flags of the parallel ones.
 
 Port of ``prompt_tts_tpu/cli/_common.py`` for the port's checkpoints
 (``train/checkpoint.py``: ``<ckpt_dir>/step_<N>/state.pt``).  It reads the
 model's weights or their EMA, and fails before any model state is loaded
-when the requested item cannot exist.
+when the requested item cannot exist.  ``cli.train``, ``cli.synthesize``
+and ``cli.serve`` share ``--multihost``, ``--tp``, ``--sp`` and
+``--backend`` (:func:`add_parallel_args`, :func:`check_parallel_flags`).
 """
 
 import logging
@@ -44,3 +47,33 @@ def restore_model_state(ckpt_dir: str, cfg, ema: bool = False
              " (EMA params)" if ema else "",
              "prompt" if cfg.model.prompt_conditioning else "single-speaker")
     return state, step
+
+
+def add_parallel_args(p, multihost_help: str) -> None:
+    """``--multihost``, ``--tp``, ``--sp`` and ``--backend`` on the parser
+    ``p``."""
+    p.add_argument("--multihost", action="store_true", help=multihost_help)
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor-parallel degree: the ranks of a model "
+                        "group (parallel/tp.py; with --multihost, the "
+                        "world size a multiple of it).")
+    p.add_argument("--sp", type=int, default=1,
+                   help="Sequence-parallel degree: only 1 (not ported, "
+                        "ROADMAP.md §1 item 4).")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="With --multihost: the process group's backend "
+                        "(default NCCL on a card, gloo on the CPU; gloo "
+                        "lets ranks share one card).")
+
+
+def check_parallel_flags(args) -> None:
+    """Refuse ``--sp`` other than 1, and ``--tp`` other than 1 without
+    ``--multihost`` (``SystemExit``)."""
+    if args.sp != 1:
+        raise SystemExit("--sp: sequence parallelism is not ported "
+                         "(ROADMAP.md §1 item 4)")
+    if args.tp < 1:
+        raise SystemExit(f"--tp must be >= 1, got {args.tp}")
+    if args.tp > 1 and not args.multihost:
+        raise SystemExit("--tp > 1 runs over processes: pass --multihost "
+                         "(under torchrun or the PTTS_* variables)")

@@ -8,7 +8,9 @@ into one file (``prompt_tts_tpu_torch/aot.py``).  A serving box then runs
 ``aot.SynthesisProgram(artifact).synthesize(texts)`` with no model code,
 config or checkpoint present.  ``--device`` and ``--dtype`` take the place
 of the JAX CLI's ``--platforms``: the artifact runs on the device type it
-was exported on.
+was exported on.  The artifact is single-device: ``aot.export_synthesis``
+refuses a ``Synthesizer`` sharded over a model group (``--tp``), as the
+JAX package refuses a meshed one.
 
   python -m prompt_tts_tpu_torch.cli.export_program --out synth_b8.ptts \
       --check

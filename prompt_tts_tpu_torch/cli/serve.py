@@ -21,12 +21,26 @@ lists them, GET /healthz answers, GET /stats counts.
 On the card the batcher is a two-stage pipeline: its dispatcher enqueues
 batch k+1 on a stream of its own while its collector waits on batch k's
 event alone and pulls it.  Streaming and long-form requests bypass the
-batcher and hold one of two slots, each with its own stream.  Not ported yet: ``--tp``, ``--sp``.
+batcher and hold one of two slots, each with its own stream.
+
+``--tp N`` with ``--multihost`` (N processes under torchrun or the
+``PTTS_*`` variables, one model group) shards the denoiser over the N
+ranks (``parallel/tp.py``).  The JAX server is one controller; here only
+rank 0 runs the HTTP server, the batcher and the slots, and its
+``Synthesizer`` leads (``Synthesizer.lead``): each denoise, from whichever
+thread, first broadcasts its inputs (ids, masks, x_T from the request's
+seed, prompt latents, the sampler and step count) to the group, one at a
+time under a lock, so its collectives are the only ones in flight.  The
+other ranks run the same denoises in a follow loop
+(``Synthesizer.follow``) and exit when rank 0 shuts down.  ``--sp`` other
+than 1 is refused: it is not ported yet.
 
   python -m prompt_tts_tpu_torch.cli.serve --device cpu --steps 2 \\
       --max_batch 2 --config_file tiny.json
   curl localhost:8777/healthz
   curl -d '{"text": "Hello there."}' localhost:8777/synthesize -o x.wav
+  torchrun --nproc_per_node 2 -m prompt_tts_tpu_torch.cli.serve \
+      --multihost --tp 2
 """
 
 import argparse
@@ -38,12 +52,21 @@ import queue
 import signal
 import threading
 import time
+from datetime import timedelta
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
 
+from prompt_tts_tpu_torch.cli._common import (
+    add_parallel_args, check_parallel_flags,
+)
+
 log = logging.getLogger(__name__)
+
+# a follower rank waits on rank 0 between requests for as long as the
+# server is idle: its collectives may not time out
+IDLE_TIMEOUT = timedelta(days=365)
 
 # how many streaming / long-form requests may run at once
 STREAM_SLOTS = 2
@@ -70,6 +93,8 @@ def parse_args(argv=None):
     p.add_argument("--batch_window_ms", type=int, default=30,
                    help="How long to wait to fill a batch.")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--dtype", choices=("bf16", "f32"), default="bf16",
+                   help="Denoiser compute dtype (the codec decodes in f32).")
     p.add_argument("--guidance_scale", type=float, default=1.0,
                    help="Classifier-free guidance scale (>1 needs a "
                         "model trained with cond_dropout_prob>0; "
@@ -103,6 +128,9 @@ def parse_args(argv=None):
                         "requests (which bypass the batcher): max wait "
                         "for one of the two in-flight slots before "
                         "rejecting with 429.")
+    add_parallel_args(p, "Run as one rank of a process group (torchrun or "
+                         "the PTTS_* variables), for --tp; the world is one "
+                         "model group and rank 0 serves.")
     return p.parse_args(argv)
 
 
@@ -615,14 +643,11 @@ class Server(ThreadingHTTPServer):
     def server_close(self):
         super().server_close()
         self.batcher.close()
+        self.synth.release()
 
 
-def build_server(argv=None) -> Server:
-    """The server of ``argv``, warmed up and listening (not yet serving):
-    the ``Synthesizer``, the speaker registry, the warmup, the batcher and
-    the socket.  ``startup`` holds the seconds each took."""
-    args = parse_args(argv)
-    t0 = time.perf_counter()
+def _synthesizer(args, device):
+    """The ``Synthesizer`` of the parsed ``args`` on ``device``."""
     from prompt_tts_tpu_torch.config import Config
     from prompt_tts_tpu_torch.pipeline import Synthesizer
 
@@ -648,20 +673,42 @@ def build_server(argv=None) -> Server:
     if args.codec_params:
         codec_state = torch.load(args.codec_params, map_location="cpu",
                                  weights_only=True)
-    synth = Synthesizer(config=config, device=args.device,
-                        num_inference_steps=args.steps, sampler=args.sampler,
-                        guidance_scale=args.guidance_scale,
-                        model_state=model_state, codec_state=codec_state)
+    dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
+    return Synthesizer(config=config, device=device, dtype=dtype,
+                       num_inference_steps=args.steps, sampler=args.sampler,
+                       guidance_scale=args.guidance_scale,
+                       model_state=model_state, codec_state=codec_state)
+
+
+def build_server(argv=None, device=None) -> Server:
+    """The server of ``argv``, warmed up and listening (not yet serving):
+    the ``Synthesizer`` (on ``device``, else ``--device``), the speaker
+    registry, the warmup, the batcher and the socket.  ``startup`` holds
+    the seconds each took.  On rank 0 of a model group of ``--tp`` ranks
+    the ``Synthesizer`` leads the others (which run :func:`follow`) from
+    the warmup on."""
+    args = parse_args(argv)
+    t0 = time.perf_counter()
+    synth = _synthesizer(args, device or args.device)
+    config = synth.config
+    prompted = config.model.prompt_conditioning
+    if synth.tp > 1:
+        synth.lead()
     t_build = time.perf_counter()
-    speakers = load_speakers(synth, args.speakers) if prompted else {}
-    t_speakers = time.perf_counter()
-    log.info("warming up (the batched program and the streaming path)")
-    warmup(synth, args.max_batch, default_chunk(config.model.sample_size),
-           speakers)
-    t_warm = time.perf_counter()
-    batcher = _Batcher(synth, args.max_batch, args.batch_window_ms / 1e3,
-                       prompted=prompted, max_queue=args.max_queue)
-    server = Server(args, synth, speakers, batcher)
+    try:
+        speakers = load_speakers(synth, args.speakers) if prompted else {}
+        t_speakers = time.perf_counter()
+        log.info("warming up (the batched program and the streaming path)")
+        warmup(synth, args.max_batch,
+               default_chunk(config.model.sample_size), speakers)
+        t_warm = time.perf_counter()
+        batcher = _Batcher(synth, args.max_batch,
+                           args.batch_window_ms / 1e3, prompted=prompted,
+                           max_queue=args.max_queue)
+        server = Server(args, synth, speakers, batcher)
+    except BaseException:
+        synth.release()         # the followers return
+        raise
     t_end = time.perf_counter()
     server.startup = {"build_s": t_build - t0,
                       "speakers_s": t_speakers - t_build,
@@ -670,9 +717,43 @@ def build_server(argv=None) -> Server:
     return server
 
 
+def follow(argv=None, device=None) -> int:
+    """A rank of the model group other than 0: build the same
+    ``Synthesizer`` and run the denoises rank 0 sends until it shuts down.
+    Returns how many ran."""
+    synth = _synthesizer(parse_args(argv), device)
+    log.info("rank of a model group of %d: following rank 0", synth.tp)
+    n = synth.follow()
+    log.info("rank 0 shut down after %d denoises", n)
+    return n
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
-    server = build_server(argv)
+    args = parse_args(argv)
+    check_parallel_flags(args)
+    if not args.multihost:
+        _serve(argv)
+        return
+    from prompt_tts_tpu_torch.parallel import (
+        data_size, init_distributed, model_rank,
+    )
+    device = init_distributed(args.device, backend=args.backend,
+                              n_model=args.tp, timeout=IDLE_TIMEOUT)
+    try:
+        if data_size() != 1:
+            raise SystemExit(f"--multihost serving runs one model group: "
+                             f"the world size must be --tp ({args.tp})")
+        if model_rank() != 0:
+            follow(argv, device)
+        else:
+            _serve(argv, device)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _serve(argv=None, device=None):
+    server = build_server(argv, device)
 
     # SIGTERM stops accepting connections, drains what is in flight, then
     # exits 0

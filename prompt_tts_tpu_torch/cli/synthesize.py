@@ -10,8 +10,12 @@ config it was trained under) or from a reference-repo ``ckpt_N.pt``
 (``--codec_params``, as ``cli.convert_codec`` writes it).  What is not
 given is random, drawn from seeded generators, and the output is noise.
 ``--long`` takes one ``--text`` of any length, synthesizes it window by
-window (``Synthesizer.synthesize_long``) and writes one wav.  Not ported
-yet: ``--tp`` and ``--sp``.
+window (``Synthesizer.synthesize_long``) and writes one wav.  ``--tp N``
+with ``--multihost`` (under torchrun or the ``PTTS_*`` variables, N
+processes) shards the denoiser over the N ranks of one model group
+(``parallel/tp.py``): every rank runs the same synthesis, and rank 0
+writes.  ``--sp`` (sequence parallelism) other than 1 is refused: it is
+not ported yet.
 
   python -m prompt_tts_tpu_torch.cli.synthesize --text "Hello." --out x.wav \
       --ckpt_dir ckpt --ema --codec_params codec.pt
@@ -20,6 +24,8 @@ yet: ``--tp`` and ``--sp``.
       --prompt_wav voice.wav --sampler dpm --steps 25 --guidance_scale 3
   python -m prompt_tts_tpu_torch.cli.synthesize --long --crossfade_ms 20 \
       --text "A passage of several sentences. ..." --out long.wav
+  torchrun --nproc_per_node 2 -m prompt_tts_tpu_torch.cli.synthesize \
+      --multihost --tp 2 --text "Hello." --out x.wav
 """
 
 import argparse
@@ -28,6 +34,10 @@ import os
 import time
 
 import torch
+
+from prompt_tts_tpu_torch.cli._common import (
+    add_parallel_args, check_parallel_flags,
+)
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -87,6 +97,9 @@ def parse_args(argv=None):
                    help="Long-form, prompt-conditioned family only: "
                         "condition each window on the previous window's "
                         "generated tail codes (sequential windows).")
+    add_parallel_args(p, "Run as one rank of a process group (torchrun or "
+                         "the PTTS_* variables), for --tp; the world is one "
+                         "model group.")
     return p.parse_args(argv)
 
 
@@ -117,8 +130,24 @@ def main(argv=None):
                          "checkpoints produced by train --ema_decay)")
     if args.ckpt_dir and args.ref_ckpt:
         raise SystemExit("pass --ckpt_dir or --ref_ckpt, not both")
+    check_parallel_flags(args)
+    if not args.multihost:
+        return _synthesize(args, texts, args.device)
+    from prompt_tts_tpu_torch.parallel import data_size, init_distributed
+    device = init_distributed(args.device, backend=args.backend,
+                              n_model=args.tp)
+    try:
+        if data_size() != 1:
+            raise SystemExit(f"--multihost synthesis runs one model group: "
+                             f"the world size must be --tp ({args.tp})")
+        return _synthesize(args, texts, device)
+    finally:
+        torch.distributed.destroy_process_group()
 
+
+def _synthesize(args, texts, device):
     from prompt_tts_tpu_torch.config import Config
+    from prompt_tts_tpu_torch.parallel import world_rank
     from prompt_tts_tpu_torch.utils.wav import (
         trim_trailing_silence, write_wav,
     )
@@ -146,7 +175,7 @@ def main(argv=None):
     else:
         logging.warning("no --codec_params given: using RANDOM codec "
                         "weights (output is noise)")
-    synth = Synthesizer(config=config, device=args.device,
+    synth = Synthesizer(config=config, device=device,
                         dtype=_DTYPES[args.dtype],
                         num_inference_steps=args.steps, sampler=args.sampler,
                         guidance_scale=args.guidance_scale,
@@ -166,7 +195,8 @@ def main(argv=None):
                                     prompt_wav=prompt_wav,
                                     crossfade_ms=args.crossfade_ms,
                                     continuity_prompt=args.continuity_prompt)
-        write_wav(args.out, wav, SAMPLE_RATE)
+        if world_rank() == 0:
+            write_wav(args.out, wav, SAMPLE_RATE)
         logging.info("wrote %s (%.2f s, %d chunks) in %.3f s", args.out,
                      len(wav) / SAMPLE_RATE,
                      len(synth.split_long_text(texts[0])),
@@ -183,8 +213,9 @@ def main(argv=None):
         if args.trim:
             wav = trim_trailing_silence(wav)
         path = args.out if len(wavs) == 1 else f"{base}_{i}{ext}"
-        write_wav(path, wav, SAMPLE_RATE)
-        logging.info("wrote %s (%.2f s)", path, len(wav) / SAMPLE_RATE)
+        if world_rank() == 0:
+            write_wav(path, wav, SAMPLE_RATE)
+            logging.info("wrote %s (%.2f s)", path, len(wav) / SAMPLE_RATE)
         paths.append(path)
     return paths, wavs, codes
 

@@ -10,12 +10,14 @@ on synthetic data), --init_from_ref (a warm start from a reference-repo
 --streaming (batches read from the tar as they are needed), --multihost
 (data parallelism: one process per GPU under DDP, ``--batch_size`` the
 global batch), --per_process_data (with --multihost: each process
-collates only its rows) and --device (``cuda`` unless the caller asks for
-``cpu``; under --multihost ``cuda:LOCAL_RANK``).  Both model families
-train: a config with ``prompt_conditioning`` gets prompt crops of
-``prompt_frames`` in every batch.  Without a warm start the weights start
-from ``train.seed``.  --tp and --sp (tensor and sequence parallelism) are
-refused: they are not ported yet.
+collates only its rows), --tp N (with --multihost: tensor parallelism,
+the model's Megatron slices over model groups of N ranks, the world laid
+out as world/N data ranks x N, ``parallel/tp.py``) and --device (``cuda``
+unless the caller asks for ``cpu``; under --multihost
+``cuda:LOCAL_RANK``).  Both model families train: a config with
+``prompt_conditioning`` gets prompt crops of ``prompt_frames`` in every
+batch.  Without a warm start the weights start from ``train.seed``.
+--sp (sequence parallelism) other than 1 is refused: it is not ported yet.
 
   python -m prompt_tts_tpu_torch.cli.train --data_file codes.tar \\
       --bf16 --ckpt_dir ckpt --ema_decay 0.999
@@ -24,6 +26,8 @@ refused: they are not ported yet.
   python -m prompt_tts_tpu_torch.cli.train --smoke --device cpu
   torchrun --nproc_per_node 8 -m prompt_tts_tpu_torch.cli.train \\
       --multihost --data_file codes.tar --bf16 --ckpt_dir ckpt
+  torchrun --nproc_per_node 8 -m prompt_tts_tpu_torch.cli.train \\
+      --multihost --tp 2 --data_file codes.tar --bf16 --ckpt_dir ckpt
 
 Under --multihost the rendezvous comes from torchrun's environment, or
 from ``PTTS_COORDINATOR`` (``host:port``), ``PTTS_NUM_PROCESSES`` and
@@ -34,6 +38,10 @@ from ``PTTS_COORDINATOR`` (``host:port``), ``PTTS_NUM_PROCESSES`` and
 import argparse
 import dataclasses
 import logging
+
+from prompt_tts_tpu_torch.cli._common import (
+    add_parallel_args, check_parallel_flags,
+)
 
 
 def parse_args(argv=None):
@@ -78,21 +86,15 @@ def parse_args(argv=None):
                         "the corpus into RAM (large corpora).")
     p.add_argument("--smoke", action="store_true",
                    help="Tiny config on synthetic data (sanity check).")
-    p.add_argument("--multihost", action="store_true",
-                   help="Data parallelism over processes (one per GPU, "
-                        "under torchrun or the PTTS_* variables): "
-                        "torch.distributed with DDP.")
     p.add_argument("--per_process_data", action="store_true",
                    help="With --multihost: each process loads only its 1/P "
                         "slice of every batch (per-host corpus I/O scales "
                         "down; streaming datasets never read the other "
                         "hosts' rows).")
-    p.add_argument("--tp", type=int, default=1,
-                   help="Tensor-parallel degree: only 1 (not ported, "
-                        "ROADMAP.md §1 item 8b).")
-    p.add_argument("--sp", type=int, default=1,
-                   help="Sequence-parallel degree: only 1 (not ported, "
-                        "ROADMAP.md §1 item 8c).")
+    add_parallel_args(p, "Data parallelism over processes (one per GPU, "
+                         "under torchrun or the PTTS_* variables): "
+                         "torch.distributed with DDP, and with --tp tensor "
+                         "parallelism.")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -104,12 +106,7 @@ def main(argv=None):
     if args.init_from_ref and args.resume:
         raise SystemExit("--init_from_ref and --resume are mutually "
                          "exclusive (resume restores params itself)")
-    if args.tp != 1:
-        raise SystemExit("--tp: tensor parallelism is not ported "
-                         "(ROADMAP.md §1 item 8b)")
-    if args.sp != 1:
-        raise SystemExit("--sp: sequence parallelism is not ported "
-                         "(ROADMAP.md §1 item 8c)")
+    check_parallel_flags(args)
     logging.basicConfig(
         format="%(asctime)s - %(levelname)s: %(message)s",
         level=logging.INFO, datefmt="%I:%M:%S",
@@ -119,7 +116,8 @@ def main(argv=None):
     device = args.device
     if args.multihost:
         from prompt_tts_tpu_torch.parallel import init_distributed
-        device = init_distributed(device)
+        device = init_distributed(device, backend=args.backend,
+                                  n_model=args.tp)
     try:
         return _train(args, device)
     finally:

@@ -15,6 +15,14 @@ call (``set_compute_dtype_``), as flax does.
 
 Dropout sits where the JAX model has it (attention output, GEGLU hidden,
 UNet resnet block) and is active only in ``module.train()``.
+
+Tensor parallelism (``parallel/tp.py``): ``parallel.tp.shard_model_`` sets
+``tp`` on the layers it slices.  An ``Attention`` then computes its local
+heads (q/k/v column-parallel), its ``to_out`` and a ``GEGLUFeedForward``'s
+``out`` are row-parallel ``Dense``s (their partial products summed over
+the model group before the bias), and a sliced ``Conv1d`` or ``Embedding``
+gathers its output channels.  With ``tp`` None (the default) nothing
+changes.
 """
 
 from typing import Optional, Tuple
@@ -24,6 +32,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from prompt_tts_tpu_torch.ops.attention import scaled_dot_product_attention
+from prompt_tts_tpu_torch.parallel.tp import (
+    copy_to_model, gather_from_model, reduce_from_model, sharded_dropout,
+)
 
 
 def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
@@ -32,23 +43,35 @@ def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
 
 class Dense(nn.Linear):
     """``nn.Linear`` computing in ``compute_dtype`` (the weight's dtype when
-    None), input and params cast per call (flax Dense)."""
+    None), input and params cast per call (flax Dense).  With ``tp`` set it
+    is row-parallel: its input and weight are this rank's slices of the
+    in-features, and the partial products are summed over the model group
+    before the bias."""
 
     compute_dtype: Optional[torch.dtype] = None
+    tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or self.weight.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+        if self.tp is None:
+            return F.linear(x.to(dt), self.weight.to(dt),
+                            _cast(self.bias, dt))
+        y = reduce_from_model(F.linear(x.to(dt), self.weight.to(dt)),
+                              self.tp)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class Embedding(nn.Embedding):
-    """``nn.Embedding`` looking up in ``compute_dtype`` (flax Embed)."""
+    """``nn.Embedding`` looking up in ``compute_dtype`` (flax Embed); with
+    ``tp`` set its features are sliced and gathered."""
 
     compute_dtype: Optional[torch.dtype] = None
+    tp = None
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or self.weight.dtype
-        return F.embedding(ids, self.weight.to(dt))
+        y = F.embedding(ids, self.weight.to(dt))
+        return y if self.tp is None else gather_from_model(y, self.tp)
 
 
 class Conv1d(nn.Module):
@@ -64,13 +87,18 @@ class Conv1d(nn.Module):
                               padding, bias=use_bias, device=device)
 
     compute_dtype: Optional[torch.dtype] = None
+    # set: the output channels are sliced (column-parallel) and gathered
+    tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.conv
         dt = self.compute_dtype or c.weight.dtype
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
         x = x.to(dt).transpose(1, 2)
-        return c._conv_forward(x, c.weight.to(dt),
-                               _cast(c.bias, dt)).transpose(1, 2)
+        y = c._conv_forward(x, c.weight.to(dt),
+                            _cast(c.bias, dt)).transpose(1, 2)
+        return y if self.tp is None else gather_from_model(y, self.tp)
 
 
 class GroupNorm(nn.Module):
@@ -102,7 +130,10 @@ class LayerNorm(nn.LayerNorm):
 class Attention(nn.Module):
     """Multi-head attention with optional cross-context and additive bias
     (diffusers ``CrossAttention`` numerics: q/k/v without bias, output
-    projection with bias, scale ``head_dim**-0.5``)."""
+    projection with bias, scale ``head_dim**-0.5``).  Under tensor
+    parallelism ``num_heads`` is the local count."""
+
+    tp = None
 
     def __init__(self, query_dim: int, context_dim: int, num_heads: int,
                  head_dim: int, out_dim: Optional[int] = None,
@@ -125,6 +156,10 @@ class Attention(nn.Module):
         kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> torch.Tensor:
         B, Tq, _ = x.shape
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
+            if context is not None:
+                context = copy_to_model(context, self.tp)
         q = self.to_q(x).reshape(B, Tq, self.num_heads, self.head_dim)
         if kv_cache is not None:
             # k/v precomputed from a loop-invariant context (the sampler
@@ -141,7 +176,11 @@ class Attention(nn.Module):
 
 class GEGLUFeedForward(nn.Module):
     """GEGLU feed-forward ``Dense(8C) -> value * gelu(gate) -> Dense(C)``,
-    exact-erf GELU (diffusers ``FeedForward(activation_fn="geglu")``)."""
+    exact-erf GELU (diffusers ``FeedForward(activation_fn="geglu")``).
+    Under tensor parallelism ``proj`` gives this rank's ``[value | gate]``
+    columns and the dropout keeps its slice of one whole mask."""
+
+    tp = None
 
     def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0,
                  device=None):
@@ -152,8 +191,13 @@ class GEGLUFeedForward(nn.Module):
         self.out = Dense(inner, dim, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
         value, gate = self.proj(x).chunk(2, dim=-1)
-        return self.out(self.dropout(value * F.gelu(gate)))
+        h = value * F.gelu(gate)
+        if self.tp is not None and self.training and self.dropout.p > 0:
+            return self.out(sharded_dropout(h, self.dropout.p, self.tp))
+        return self.out(self.dropout(h))
 
 
 class TransformerBlock(nn.Module):

@@ -424,6 +424,7 @@ def cross_attention_kv(unet: UNet1DCondition,
         for l in range(n_layers):
             a = getattr(st, f"block_{l}").attn2
             layers.append(tuple(
-                lin(context).reshape(B, S, H, -1) for lin in (a.to_k, a.to_v)))
+                lin(context).reshape(B, S, a.num_heads, -1)
+                for lin in (a.to_k, a.to_v)))
         out.setdefault(block, {})[attn] = layers
     return out

@@ -19,6 +19,13 @@ to the kernel's op as the module's state.  Training needs gradients and
 the kernel has none, so there the module arithmetic runs under autograd
 (:func:`resnet_block_plain`), as the JAX training path keeps XLA for this
 op.
+
+Under tensor parallelism (``parallel/tp.py``) a block's convolutions hold
+this rank's output channels and gather them, and the kernel takes a whole
+block's packed weights: a sharded block runs the module arithmetic
+(:func:`resnet_block_plain` on the sharded convolutions), with or without
+a gradient.  This is a dispatch by configuration, not a fallback: the
+kernel stays the path of every unsharded block.
 """
 
 import torch
@@ -62,7 +69,9 @@ def pack_kernel_weights_(block, cpu: bool = False) -> None:
     the card are packed only with ``cpu``; else the plain version reads
     the module."""
     packed = None
-    if cpu or block.conv1.conv.weight.device.type == "cuda":
+    # a sharded block never takes the kernel
+    if block.conv1.tp is None and (
+            cpu or block.conv1.conv.weight.device.type == "cuda"):
         packed = pack_resnet_weights(block, _kernel_dtype(block))
     block.kernel_weights = packed
     for name in _ORDER:
@@ -78,7 +87,7 @@ def resnet_block(block, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
     dropout = block.training and block.dropout.p > 0
     packed = getattr(block, "kernel_weights", None)
     if (x.device.type == "cpu" and packed is None) or dropout or \
-            _needs_grad(block, x, temb):
+            block.conv1.tp is not None or _needs_grad(block, x, temb):
         return resnet_block_plain(block, x, temb_proj)
     dt = _kernel_dtype(block)
     if packed is not None and traced():

@@ -11,12 +11,23 @@ families; synthesis in one call, dispatched without a host pull
 (``synthesize_long``, ``synthesize_long_stream``).  Code normalization
 contract: model latents live in [-1, 1] via ``c * 2/1023 - 1``; synthesis
 inverts with round + clip before the codec decode.
+
+Tensor parallelism: in a process group whose model axis has more than
+one rank (``parallel.init_distributed(n_model=...)``), a ``Synthesizer``
+holds its rank's slices of the denoiser (``parallel/tp.py``), and the
+ranks of a model group run every call together, as one program: each
+draws the same x_T from its seeded CPU generator, decodes with its whole
+copy of the codec and returns the same wav (a CLI writes on rank 0).  A
+server runs the calls on rank 0 only: :meth:`Synthesizer.lead` makes
+rank 0 send each denoise's inputs to the group before it runs, and the
+other ranks run them in :meth:`Synthesizer.follow`.
 """
 
 import contextlib
 import copy
 import math
 import re
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,6 +50,10 @@ from prompt_tts_tpu_torch.models.prompt_encoder import PromptEncoder
 from prompt_tts_tpu_torch.models.prompt_tts import TTSPromptSpeaker
 from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
 from prompt_tts_tpu_torch.models.unet1d import cross_attn_sites
+from prompt_tts_tpu_torch.parallel import (
+    model_group, model_rank, model_size, model_src,
+)
+from prompt_tts_tpu_torch.parallel.tp import shard_model_
 from prompt_tts_tpu_torch.utils.precision import (  # noqa: F401
     _f32_scope, denoise_scope, full_f32,
 )
@@ -179,11 +194,12 @@ class ConditionProgram(nn.Module):
         if self.prompted:
             self.prompt_encoder = model.prompt_encoder
         unet = model.unet
-        self.num_heads = unet.config.unet_num_heads
         attn2 = [getattr(getattr(getattr(unet, block), attn),
                          f"block_{l}").attn2
                  for block, attn, n in cross_attn_sites(unet.config)
                  for l in range(n)]
+        # each site's (local, under tensor parallelism) head count
+        self.num_heads = [a.num_heads for a in attn2]
         self.to_k = nn.ModuleList(a.to_k for a in attn2)
         self.to_v = nn.ModuleList(a.to_v for a in attn2)
 
@@ -208,8 +224,8 @@ class ConditionProgram(nn.Module):
                 speaker = torch.cat([speaker, null_spk])
         B, S, _ = context.shape
         cond = []
-        for to_k, to_v in zip(self.to_k, self.to_v):
-            cond += [lin(context).reshape(B, S, self.num_heads, -1)
+        for to_k, to_v, heads in zip(self.to_k, self.to_v, self.num_heads):
+            cond += [lin(context).reshape(B, S, heads, -1)
                      for lin in (to_k, to_v)]
         if speaker is not None:
             cond.append(speaker)
@@ -313,6 +329,10 @@ class Synthesizer:
 
     On the card a call's device work goes on the caller's current stream:
     several threads may call at once, each on a stream of its own.
+
+    In a process group with a model axis of ``tp > 1`` ranks the denoiser
+    is sharded by ``parallel/tp.py``'s rules and every rank of the group
+    makes the same calls (see the module docstring); ``tp`` is that size.
     """
 
     def __init__(self, config: Optional[Config] = None, device="cuda",
@@ -339,6 +359,12 @@ class Synthesizer:
         else:
             random_init_(self.model,
                          torch.Generator().manual_seed(MODEL_INIT_SEED))
+        self.tp = model_size()
+        if self.tp > 1:
+            shard_model_(self.model, model_rank(), self.tp, model_group())
+        # set by lead(): the lock that holds one denoise's broadcast and
+        # collectives together
+        self._leading = None
         cast_compute_(self.model.eval(), dtype, pack_cpu=True)
         self.codec_runner = CodecRunner(self.device, codec_state)
         self.codec_fast = self.codec_runner.at_dtype(codec_dtype)
@@ -438,12 +464,71 @@ class Synthesizer:
         if self.prompted and prompt is None:
             raise ValueError("the prompt-conditioned model needs prompt "
                              "latents")
+        if self._leading is not None:
+            with self._leading:
+                self._send((x_T, ids, mask, prompt))
+                return self._denoise(x_T, ids, mask, prompt)
+        return self._denoise(x_T, ids, mask, prompt)
+
+    def _denoise(self, x_T, ids, mask, prompt):
         ts, coef = self._device_tables()
         with denoise_scope(self.dtype):
             cond = self.condition_program()(
                 ids, mask, *((prompt,) if self.prompted else ()))
             return run_steps(self.step_program(), cond, x_T, ts, coef,
                              self.sampler)
+
+    def _send(self, inputs) -> None:
+        """Broadcast a denoise's inputs and the sampler settings to the
+        model group (None: the followers return)."""
+        msg = None
+        if inputs is not None:
+            msg = (tuple(None if t is None else t.cpu() for t in inputs),
+                   (self.sampler, self.num_inference_steps,
+                    self.guidance_scale))
+        torch.distributed.broadcast_object_list(
+            [msg], src=model_src(), group=model_group())
+
+    def lead(self) -> None:
+        """On rank 0 of a model group (``tp > 1``): from now on every
+        denoise first sends its inputs (x_T, ids, mask, prompt latents) and
+        the sampler, step count and guidance scale to the group, whose
+        other ranks run it in :meth:`follow`; one denoise at a time, from
+        any thread.  :meth:`release` ends the followers."""
+        if self.tp == 1 or model_rank() != 0:
+            raise ValueError("lead() is for rank 0 of a model group of "
+                             "more than one rank")
+        self._leading = threading.Lock()
+
+    def release(self) -> None:
+        """Tell the followers to return (rank 0, after :meth:`lead`)."""
+        if self._leading is not None:
+            with self._leading:
+                self._send(None)
+            self._leading = None
+
+    @torch.no_grad()
+    def follow(self) -> int:
+        """On the other ranks of a model group: run each denoise rank 0
+        sends (:meth:`lead`), with its settings, until it releases the
+        group.  Returns the number of denoises run."""
+        if self.tp == 1 or model_rank() == 0:
+            raise ValueError("follow() is for the ranks other than 0 of a "
+                             "model group of more than one rank")
+        n = 0
+        while True:
+            box = [None]
+            torch.distributed.broadcast_object_list(
+                box, src=model_src(), group=model_group())
+            if box[0] is None:
+                return n
+            inputs, settings = box[0]
+            (self.sampler, self.num_inference_steps,
+             self.guidance_scale) = settings
+            x_T, ids, mask, prompt = (
+                None if t is None else t.to(self.device) for t in inputs)
+            self._denoise(x_T, ids, mask, prompt)
+            n += 1
 
     def prompt_latents(self, prompt_wav=None, prompt_codes=None
                        ) -> torch.Tensor:

@@ -11,7 +11,12 @@ is always whole; the oldest beyond ``max_to_keep`` are deleted.
 model's weights (or their EMA) alone, mapped from the file on the CPU.
 Under data parallelism rank 0 writes and every rank waits for it at a
 barrier; every rank restores the same file, and a checkpoint written by
-several ranks loads in one process.
+several ranks loads in one process.  Under tensor parallelism the ranks
+of rank 0's model group send it their slices of the state (parameters,
+AdamW moments, EMA, accumulated gradients), and it writes the whole
+(one-rank) layout (``parallel.tp.gather_train_state``); a restore reads
+the whole state and keeps this rank's slices, so a checkpoint restores
+on any number of model ranks, and in one process.
 """
 
 import os
@@ -22,7 +27,15 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from prompt_tts_tpu_torch.parallel import barrier, data_rank
+import torch.distributed as dist
+
+from prompt_tts_tpu_torch.parallel import (
+    barrier, data_rank, model_group, model_rank, model_size, model_src,
+    world_rank,
+)
+from prompt_tts_tpu_torch.parallel.tp import (
+    gather_train_state, shard_train_state,
+)
 from prompt_tts_tpu_torch.train.state import TrainState
 
 _STEP_DIR = re.compile(r"step_(\d+)")
@@ -51,16 +64,27 @@ class CheckpointManager:
         ``Generator.get_state()`` (or a stack of them).  Returns its
         directory.  Every rank calls it: rank 0 writes, and all return
         once the checkpoint is whole on disk."""
-        if data_rank() == 0:
-            self._write(state, step, generators)
+        if model_size() == 1:
+            if world_rank() == 0:
+                self._write(state.state_dict(), step, generators)
+        elif data_rank() == 0:
+            # rank 0's model group: every rank's slices go to rank 0
+            local = _to_cpu(state.state_dict())
+            shards = [None] * model_size() if model_rank() == 0 else None
+            dist.gather_object(local, shards, dst=model_src(),
+                               group=model_group())
+            if world_rank() == 0:
+                self._write(gather_train_state(
+                    shards, state.names, state.model.tp_full_shapes),
+                    step, generators)
         barrier()
         return self._path(step)
 
-    def _write(self, state: TrainState, step: int,
+    def _write(self, sd: Dict, step: int,
                generators: Optional[Dict[str, torch.Tensor]]) -> None:
         tmp = tempfile.mkdtemp(prefix=".tmp_step_", dir=self._dir)
         try:
-            torch.save({"state": state.state_dict(), "step": int(step),
+            torch.save({"state": sd, "step": int(step),
                         "generators": generators or {}},
                        os.path.join(tmp, "state.pt"))
             final = self._path(step)
@@ -105,8 +129,26 @@ class CheckpointManager:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self._dir}")
-        device = next(state.model.parameters()).device
+        sharded = model_size() > 1
+        device = ("cpu" if sharded
+                  else next(state.model.parameters()).device)
         ckpt = torch.load(os.path.join(self._path(step), "state.pt"),
                           map_location=device, weights_only=False)
-        state.load_state_dict(ckpt["state"])
+        sd = ckpt["state"]
+        if sharded:
+            sd = shard_train_state(sd, state.names, model_rank(),
+                                   model_size())
+        state.load_state_dict(sd)
         return int(ckpt["step"]), ckpt["generators"]
+
+
+def _to_cpu(obj):
+    """``obj`` (nested dicts and lists of tensors) with every tensor on
+    the CPU, for a pickled send."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj

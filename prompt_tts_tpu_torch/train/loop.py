@@ -25,8 +25,19 @@ gradients into its mean and each micro-step's ``grad_norm`` is the global
 one.  Dropout draws from a generator of each rank's own, seeded from
 ``(seed, rank)``; the noise, timesteps and condition drop from one that
 every rank seeds alike (``train/step.py``).  Only rank 0 writes metrics,
-traces and checkpoints; every rank restores the same checkpoint.  Tensor
-and sequence parallelism are not ported.
+traces and checkpoints; every rank restores the same checkpoint.
+
+Tensor parallelism: with a model axis of ``n_model`` ranks
+(``parallel.init_distributed(n_model=...)``, the CLI's ``--tp``), the
+world is ``data x model`` ranks (``parallel/mesh.py``).  Each rank holds
+its slices of the model by ``parallel/tp.py``'s rules; DDP all-reduces
+the gradients over the data group only, and the loss, the data rows, the
+rank of the dropout stream and the checkpoint's dropout streams are the
+data axis's: the ranks of one model group take the same rows and draw the
+same dropout masks, or their replicated activations would drift apart.
+A checkpoint holds the whole model (``train/checkpoint.py``), so it
+restores on any number of model ranks.  Sequence parallelism is not
+ported.
 """
 
 import logging
@@ -47,9 +58,11 @@ from prompt_tts_tpu_torch.models.layers import set_compute_dtype_
 from prompt_tts_tpu_torch.models.prompt_tts import TTSPromptSpeaker
 from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
 from prompt_tts_tpu_torch.parallel import (
-    data_rank, data_size, distributed, gather_objects, mean_over_ranks,
-    shard_batch, shard_local_batch,
+    data_group, data_rank, data_size, distributed, gather_objects,
+    mean_over_ranks, model_group, model_rank, model_size, set_mesh,
+    shard_batch, shard_local_batch, world_rank,
 )
+from prompt_tts_tpu_torch.parallel.tp import shard_model_
 from prompt_tts_tpu_torch.pipeline import random_init_
 from prompt_tts_tpu_torch.train.checkpoint import CheckpointManager
 from prompt_tts_tpu_torch.train.state import TrainState
@@ -110,7 +123,9 @@ class Trainer:
     background thread (:func:`prefetch`) while the step runs.  ``remat``,
     ``profile_steps`` and ``per_process_data``: see the module docstring.
     Under a process group ``config.train.batch_size`` is the global batch
-    and must split evenly over the ranks, and ``device`` is this rank's.
+    and must split evenly over the data axis, and ``device`` is this
+    rank's.  ``n_model``: the model axis's size (None: the current mesh's;
+    another value lays the mesh out again, on every rank).
     """
 
     def __init__(self, config: Config, dataset, log_dir: str,
@@ -119,7 +134,8 @@ class Trainer:
                  log_every: int = 0,
                  init_state: Optional[Mapping[str, torch.Tensor]] = None,
                  remat: bool = False, profile_steps: int = 0,
-                 per_process_data: bool = False):
+                 per_process_data: bool = False,
+                 n_model: Optional[int] = None):
         if log_every < 0:
             raise ValueError(f"log_every must be >= 0, got {log_every}")
         if profile_steps < 0:
@@ -130,7 +146,11 @@ class Trainer:
             raise ValueError("Trainer: a prompt-conditioned config needs a "
                              "dataset with prompt_frames (prompt crops)")
         tcfg = config.train
+        if n_model is not None and n_model != model_size():
+            set_mesh(n_model)
         self.rank, self.world = data_rank(), data_size()
+        # the one process that writes metrics, traces and checkpoints
+        self.writer = world_rank() == 0
         if tcfg.batch_size % self.world:
             raise ValueError(f"batch_size {tcfg.batch_size} not divisible "
                              f"by process count {self.world}")
@@ -144,7 +164,7 @@ class Trainer:
         self.dataset = dataset
         self.eval_every = eval_every
         self.log_dir = log_dir
-        self.profile_steps = profile_steps if self.rank == 0 else 0
+        self.profile_steps = profile_steps if self.writer else 0
         self._profiler = None
         self.log_every = log_every or (
             50 if self.device.type == "cuda" else 1)
@@ -156,11 +176,12 @@ class Trainer:
         else:
             random_init_(self.model,
                          torch.Generator().manual_seed(tcfg.seed))
+        shard_model_(self.model, model_rank(), model_size(), model_group())
         set_compute_dtype_(self.model,
                            None if dtype == torch.float32 else dtype)
         self.schedule = linear_schedule(tcfg.num_train_timesteps,
                                         device=self.device)
-        self.metrics = (MetricsWriter(log_dir) if self.rank == 0
+        self.metrics = (MetricsWriter(log_dir) if self.writer
                         else NullMetricsWriter(log_dir))
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
         self.steps_per_epoch = max(
@@ -174,10 +195,12 @@ class Trainer:
         self.dropout_generator = torch.Generator(self.device).manual_seed(
             dropout_seed(tcfg.seed, self.rank))
         # every parameter is reached by both families' losses, the
-        # condition drop included, so DDP needs no unused-parameter search
+        # condition drop included, so DDP needs no unused-parameter search;
+        # it all-reduces over the data axis only
         self.module = self.model if shard is None else DDP(
             self.model, device_ids=([self.device.index]
-                                    if self.device.type == "cuda" else None))
+                                    if self.device.type == "cuda" else None),
+            process_group=data_group())
         self._step_fn = make_train_step(
             self.state, self.schedule,
             cond_dropout_prob=tcfg.cond_dropout_prob, remat=remat,

@@ -12,6 +12,10 @@ at the update boundary only.
 Under data parallelism the gradients reach :meth:`TrainState.apply_gradients`
 already averaged over the ranks (DDP all-reduces every micro-step's), so
 the clip, ``grad_norm`` and the accumulated mean are the global ones.
+Under tensor parallelism (``parallel/tp.py``) a rank holds slices of some
+parameters: the global norm sums the squares of the sliced gradients over
+the model group and counts each whole (replicated) one once; AdamW, the
+accumulation and the EMA run unchanged on the slices.
 
 The optimizer is a stock ``torch.optim.AdamW`` (fused on the card), the
 same update as optax's ``adamw``: ``p -= lr * (m_hat / (sqrt(v_hat) + eps)
@@ -28,6 +32,8 @@ import torch
 from torch import nn
 
 from prompt_tts_tpu_torch.config import TrainConfig
+from prompt_tts_tpu_torch.parallel import model_group
+from prompt_tts_tpu_torch.parallel.tp import sharded_mask
 from prompt_tts_tpu_torch.train.lr import get_schedule
 
 
@@ -36,6 +42,19 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     ``global_norm``)."""
     norms = torch._foreach_norm([t.float() for t in tensors])
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def sharded_global_norm(tensors: List[torch.Tensor], sharded: List[bool],
+                        group) -> torch.Tensor:
+    """:func:`global_norm` of a model whose ``sharded`` tensors are this
+    rank's slices: their squares summed over ``group``, the others'
+    counted once."""
+    sq = torch.stack(torch._foreach_norm([t.float() for t in tensors])) ** 2
+    mask = torch.tensor(sharded, device=sq.device)
+    part = torch.where(mask, sq, torch.zeros_like(sq)).sum()
+    torch.distributed.all_reduce(part, group=group)
+    return torch.sqrt(part + torch.where(mask, torch.zeros_like(sq),
+                                         sq).sum())
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
@@ -79,6 +98,7 @@ class TrainState:
         self.names = [n for n, p in model.named_parameters()
                       if p.requires_grad]
         self.params = [p for p in model.parameters() if p.requires_grad]
+        self.sharded = sharded_mask(self.params)
         self.optimizer = make_optimizer(model, cfg)
         self.schedule = get_schedule(
             cfg.lr_scheduler, learning_rate=cfg.learning_rate,
@@ -90,6 +110,13 @@ class TrainState:
         self.ema: Optional[List[torch.Tensor]] = None
         if cfg.ema_decay > 0.0:
             self.ema = [p.detach().clone() for p in self.params]
+
+    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of the whole model's ``grads`` (this rank's
+        slices under tensor parallelism)."""
+        if any(self.sharded):
+            return sharded_global_norm(grads, self.sharded, model_group())
+        return global_norm(grads)
 
     def _micro_grads(self) -> List[torch.Tensor]:
         # a parameter the loss did not reach gets a zero gradient, as in
@@ -104,7 +131,7 @@ class TrainState:
         the accumulation boundary is reached.  Returns the global norm of
         this micro-step's gradients (the train step's ``grad_norm``)."""
         grads = self._micro_grads()
-        norm = global_norm(grads)
+        norm = self.global_norm(grads)
         k = self.cfg.gradient_accumulation_steps
         if k > 1:
             if self.acc_grads is None:
@@ -122,7 +149,8 @@ class TrainState:
                 p.grad = a
             self.acc_grads = None
             grads = self._micro_grads()
-            clip_by_global_norm_(grads, self.cfg.max_grad_norm)
+            clip_by_global_norm_(grads, self.cfg.max_grad_norm,
+                                 self.global_norm(grads))
         else:
             clip_by_global_norm_(grads, self.cfg.max_grad_norm, norm)
         lr = float(self.schedule(self.update_count))

@@ -754,6 +754,38 @@ def test_attention_bwd_kernel_matches_plain(dev, D, dtype):
         _assert_bwd_close(got, (q, k, v, o, do, bias))
 
 
+# the local heads of tensor parallelism over 2 ranks: the UNet's 8 heads
+# split into 4 (head dim 32/64/96 at 900/450/225/113 frames, and the
+# cross-attention over 550 text tokens), the text encoder's 12 into 6
+# (64, 550 tokens, masked)
+TP2_LOCAL = ((900, 900, 4, 32, False), (450, 550, 4, 64, False),
+             (225, 225, 4, 96, False), (113, 550, 4, 96, False),
+             (550, 550, 6, 64, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq,Tk,H,D,masked", TP2_LOCAL)
+def test_attention_kernels_at_tp2_local_heads(dev, Tq, Tk, H, D, masked,
+                                              dtype):
+    """Kernels #1 and #2 at tp 2's local head counts, B=2, against their
+    plain versions as the ragged cases hold them."""
+    q, k, v, bias, o, lse, do = _bwd_case(dev, 2, Tq, Tk, H, D, dtype,
+                                          masked)
+    ref = attention_plain(q.float(), k.float(), v.float(), bias)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ref, atol=ATTN_TOL_F32, rtol=0)
+    else:
+        torch.testing.assert_close(
+            o.float(), flash_attention_plain(q, k, v, bias).float(),
+            atol=ATTN_ATOL_BF16, rtol=ATTN_RTOL_BF16)
+        _assert_fro_close(o, ref)
+    got = attention_bwd(q, k, v, o, do, bias, lse, need_dbias=masked)
+    torch.cuda.synchronize()
+    for t, like in zip(got[:3], (q, k, v)):
+        assert t.dtype == dtype and t.shape == like.shape
+    _assert_bwd_close(got, (q, k, v, o, do, bias))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_bwd_kernel_all_masked_row(dev, dtype):
     """Batch row 1 has every key masked (an empty text): finite, and with
