@@ -168,22 +168,39 @@ Phases, each printed as one JSON object per line:
      process), rank 0's checkpoint read back through
      ``read_model_state``; gloo's step time on one card, not a scaling
      figure.
-  19. torchrun: ``torchrun --standalone --nproc_per_node 1 -m
-     prompt_tts_tpu_torch.cli.train --multihost --smoke`` on ``TINY``:
-     exit 0 and finite losses.
+  19. (the torchrun launch over NCCL runs in 20 (b), over gloo at two
+     ranks in 21 (b).)
   20. tp: tensor parallelism on the one card.  (a) 2 processes sharing it
      over gloo at ``--tp 2`` (``tp_rank_main``), ``ModelConfig()`` at full
-     width, f32 (TF32 off) and bf16: a model forward, 3 train steps at
-     B=4 and a DDIM-10 synthesis of 2 requests, each held against this
-     process's unsharded program on the same weights (``TP_*`` tolerances),
-     kernels #1 and #2 launched at the local head counts (4 and 6) on
-     every rank, #6 not at all; (b) ``cli.train`` and ``cli.synthesize
-     --multihost --tp 1`` over NCCL at world size 1 (the checkpoint, codes
-     bit-equal to an in-process ``Synthesizer``); (c) ``cli.serve
-     --multihost --tp 2 --backend gloo`` (f32, DDIM-5, batch 1): one
-     request and a wave of 4 against the one-process server, the drain
-     releasing the follower.  gloo's times on one card, not a multi-card
-     figure.
+     width and ``TP_LAYERS_PER_BLOCK`` layers a block, f32 (TF32 off) and
+     bf16: a model forward, 3 train steps at B=4 and a DDIM-10 synthesis
+     of 2 requests, each held against this process's unsharded program on
+     the same weights (``TP_*`` tolerances), kernels #1 and #2 launched at
+     the local head counts (4 and 6) on every rank, #6 not at all; (b)
+     ``cli.train --multihost --tp 1 --backend nccl`` under ``torchrun
+     --standalone --nproc_per_node 1`` (started with the phase, beside
+     (a)), then ``cli.synthesize --multihost --tp 1`` over NCCL at world
+     size 1 in this process (the checkpoint, codes bit-equal to an
+     in-process ``Synthesizer``); (c) ``cli.serve --multihost --tp 2
+     --backend gloo`` (f32, DDIM-5, batch 1): one request and a wave of 4
+     against the one-process server, the drain releasing the follower.
+     Each process it starts runs ``CHILD_THREADS`` intra-op threads.
+     gloo's times on one card, not a multi-card figure.
+  21. sp: sequence parallelism on the one card.  (a) 2 processes sharing
+     it over gloo at ``--sp 2`` (``sp_rank_main``), ``ModelConfig()`` at
+     full width (the tp phase's depth), f32 (TF32 off) and bf16: the tp
+     phase's forward, 3 train steps at B=4 and DDIM-10 of 2 requests, held
+     against the one-process results that phase computed (``TP_*``
+     tolerances), kernels #1 and #2 launched on every rank, the ring at
+     900 and 450 frames only; the ring alone at those levels' shapes (8
+     heads, D 32 and 64, B=4) against ``ring_attention_plain`` and
+     one-process attention; (b) ``cli.train`` (under ``torchrun
+     --standalone --nproc_per_node 2``) and ``cli.synthesize --multihost
+     --sp 2 --backend gloo`` on ``TINY`` against the same CLIs in this
+     process, run beside (a); (c) ``cli.serve --sp 2`` against the tp
+     phase's one-process server.  It runs after the tp phase, on a card
+     nothing else uses; its processes start with it and run side by side.
+     gloo's times on one card, not a multi-card figure.
 Then the phases' wall seconds (``phase_walls_s``), one
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.  Any failure raises (non-zero exit); without CUDA it exits non-zero
 before any result.
@@ -4593,10 +4610,19 @@ DDP_RANKS = 2
 
 
 def _free_port():
+    """A port that binds now, drawn below Linux's ephemeral range (32768
+    up): a port the kernel hands out (``bind`` to 0) can be taken by an
+    outgoing connection of another process before its server binds it."""
+    import random
     import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    while True:
+        port = random.SystemRandom().randrange(20000, 32768)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
 
 
 def _ddp_config(dropout=True, **train):
@@ -4911,46 +4937,16 @@ def phase_ddp_two_ranks(smi, tmp):
     return {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
 
 
-def phase_torchrun(smi, tmp):
-    """``torchrun --standalone --nproc_per_node 1 -m
-    prompt_tts_tpu_torch.cli.train --multihost --smoke`` on the card, with
-    ``TINY`` as the config (the smoke config's head dims are below what
-    kernel #1 takes): exit 0 and finite losses in its log."""
-    from prompt_tts_tpu_torch.config import Config, ModelConfig, TrainConfig
-    here = os.path.dirname(os.path.abspath(__file__))
-    cfg_path = os.path.join(tmp, "torchrun_tiny.json")
-    Config(model=ModelConfig(**TINY),
-           train=TrainConfig(batch_size=8, num_train_epochs=1,
-                             learning_rate=1e-3,
-                             lr_warmup_steps=0)).to_json(cfg_path)
-    log_dir = os.path.join(tmp, "torchrun_log")
-    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-            "--nproc_per_node", "1", "-m", "prompt_tts_tpu_torch.cli.train",
-            "--multihost", "--smoke", "--config_file", cfg_path,
-            "--log_every", "1", "--log_dir", log_dir, "--ckpt_dir",
-            os.path.join(tmp, "torchrun_ckpt")]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    t0 = time.perf_counter()
-    proc = subprocess.run(argv, cwd=here, env=env, capture_output=True,
-                          text=True, timeout=300)
-    run_s = time.perf_counter() - t0
-    losses = (_logged(log_dir, "Loss/train") if proc.returncode == 0
-              else {})
-    checks = {"exit_0": proc.returncode == 0,
-              "losses": sorted(losses) == [1, 2],
-              "finite": all(map(math.isfinite, losses.values()))}
-    emit({"phase": "torchrun", "what": "torchrun --standalone "
-          "--nproc_per_node 1 -m prompt_tts_tpu_torch.cli.train --multihost "
-          "--smoke --config_file <TINY>", "checks": checks,
-          "loss": losses, "run_s": run_s, "card": smi})
-    if not all(checks.values()):
-        raise AssertionError(f"torchrun checks failed: {checks}\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-
-
 TP_RANKS = 2
 TP_BATCH = 4
+# the depth of the tp and sp phases' cases (ModelConfig() has 2): their
+# widths are the flagship's, and their walls are gloo's, not the model's
+TP_LAYERS_PER_BLOCK = 1
+# the intra-op threads of each process the tp and sp phases start (8 or 9
+# run at once): with torch's default of one a host core they spin against
+# each other (NVIDIA H100 80GB HBM3, 700.00 W, 8 host cores, both in one
+# call: tp 97.5 s and sp 77.1 s at the default, 64.3 and 56.4 s at 1)
+CHILD_THREADS = "1"
 TP_STEPS = 3
 TP_SYNTH_STEPS = 10
 # requests of the tp phase's synthesis: the batch its kernel #1 calls see
@@ -5004,12 +5000,15 @@ TP_SERVE_REQUESTS = [(TEXTS[0], 3)] + [(TEXTS[i % len(TEXTS)], 20 + i)
 
 
 def _tp_config():
-    """``ModelConfig()`` at full width with the text encoder's dropout off
-    (the ranks and one process then draw alike), the tp phase's batch."""
+    """``ModelConfig()`` at full width and ``TP_LAYERS_PER_BLOCK`` layers a
+    block, with the text encoder's dropout off (the ranks and one process
+    then draw alike), the tp phase's batch."""
     from prompt_tts_tpu_torch.config import Config
     cfg = Config()
     return dataclasses.replace(
-        cfg, model=dataclasses.replace(cfg.model, text_encoder_dropout=0.0),
+        cfg, model=dataclasses.replace(
+            cfg.model, text_encoder_dropout=0.0,
+            layers_per_block=TP_LAYERS_PER_BLOCK),
         train=dataclasses.replace(cfg.train, batch_size=TP_BATCH,
                                   num_train_epochs=1))
 
@@ -5096,7 +5095,7 @@ def _tp_case(device, dtype, cfg, state, log_dir):
     out["synth_s"] = time.perf_counter() - t0
     out["latents"] = latents.float().cpu()
     out["codes"] = codes.cpu().numpy()
-    out["tp"] = synth.tp
+    out["tp"], out["sp"] = synth.tp, synth.sp
     del synth
     gc.collect()
     torch.cuda.empty_cache()
@@ -5162,32 +5161,39 @@ def _rel_gap(a, b):
                  / torch.linalg.vector_norm(b.float()))
 
 
-def _tp_grads(a, b, o, tensor_rtol):
-    """The first step's gradients of the ranks ``a`` and ``b``, gathered,
-    against one process's ``o``: (the relative gap over the whole model,
-    the tensors whose gap exceeds ``tensor_rtol`` of their own norm plus
-    ZERO_GRAD of the whole's with their gaps, the largest such gap by
-    tensor's norm, the largest gap between the ranks' replicated
-    tensors)."""
+def _grad_gaps(got, one, tensor_rtol, b=None, replicated=()):
+    """A whole gradient ``got`` against one process's ``one``: (the
+    relative gap over the whole model, the tensors whose gap exceeds
+    ``tensor_rtol`` of their own norm plus ZERO_GRAD of the whole's with
+    their gaps, the largest such gap by tensor's norm, and the largest gap
+    between the ``replicated`` tensors of ``got`` and of another rank's
+    ``b``)."""
     import torch
-    from prompt_tts_tpu_torch.parallel.tp import gather_state
-    one = {n: g.float() for n, g in o["grad"].items()}
-    tp = gather_state([a["grad"], b["grad"]],
-                      {n: g.shape for n, g in one.items()})
+    one = {n: g.float() for n, g in one.items()}
 
     def norm(t):
         return float(torch.linalg.vector_norm(t.float()))
     whole = math.sqrt(sum(norm(g) ** 2 for g in one.values()))
-    diff = {n: norm(tp[n].float() - one[n]) for n in one}
+    diff = {n: norm(got[n].float() - one[n]) for n in one}
     whole_gap = math.sqrt(sum(d ** 2 for d in diff.values())) / whole
     floor = ZERO_GRAD * whole
     rel = {n: diff[n] / max(norm(one[n]), floor) for n in one}
     over = {n: rel[n] for n in one
             if diff[n] > tensor_rtol * norm(one[n]) + floor}
-    replicated = max(norm(a["grad"][n].float() - b["grad"][n].float())
-                     / max(norm(one[n]), floor)
-                     for n in one if n not in a["sharded"])
-    return whole_gap, over, max(rel.values()), replicated
+    ranks = max((norm(got[n].float() - b[n].float())
+                 / max(norm(one[n]), floor) for n in replicated), default=0.0)
+    return whole_gap, over, max(rel.values()), ranks
+
+
+def _tp_grads(a, b, o, tensor_rtol):
+    """The first step's gradients of the ranks ``a`` and ``b``, gathered,
+    against one process's ``o`` (:func:`_grad_gaps`, the ranks' replicated
+    tensors compared)."""
+    from prompt_tts_tpu_torch.parallel.tp import gather_state
+    tp = gather_state([a["grad"], b["grad"]],
+                      {n: g.shape for n, g in o["grad"].items()})
+    return _grad_gaps(tp, o["grad"], tensor_rtol, a["grad"],
+                      [n for n in o["grad"] if n not in a["sharded"]])
 
 
 def _tp_hold(name, ranks, one):
@@ -5296,36 +5302,50 @@ def _tp_attention(smi):
     return res
 
 
-def _tp_cli_nccl(tmp):
-    """``cli.train`` then ``cli.synthesize``, each ``--multihost --tp 1``
-    over NCCL at world size 1 in this process, on ``TINY``: the groups,
-    rank 0's checkpoint, and codes bit-equal to an in-process
-    ``Synthesizer`` on the checkpoint's state.  Returns (checks, the
-    synthesis's launches)."""
-    import numpy as np
-    import torch
-    from prompt_tts_tpu_torch.cli import synthesize as synth_cli
-    from prompt_tts_tpu_torch.cli import train as train_cli
-    from prompt_tts_tpu_torch.cli._common import restore_model_state
+def _tp_nccl_train_start(tmp, here):
+    """Start ``cli.train --multihost --tp 1 --backend nccl --smoke`` on
+    ``TINY`` under ``torchrun --standalone --nproc_per_node 1`` (the
+    launcher's variables, NCCL at world size 1): (the config, its path,
+    the process)."""
     from prompt_tts_tpu_torch.config import Config, ModelConfig, TrainConfig
-    from prompt_tts_tpu_torch.pipeline import Synthesizer
     cfg = Config(model=ModelConfig(**TINY),
                  train=TrainConfig(batch_size=8, num_train_epochs=1,
                                    learning_rate=1e-3, lr_warmup_steps=0))
     cfg_path = os.path.join(tmp, "tp_tiny.json")
     cfg.to_json(cfg_path)
+    env = dict(os.environ, OMP_NUM_THREADS=CHILD_THREADS,
+               PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "prompt_tts_tpu_torch.cli.train",
+         "--multihost", "--tp", "1", "--backend", "nccl", "--smoke",
+         "--device", DEVICE, "--config_file", cfg_path, "--log_every", "1",
+         "--log_dir", os.path.join(tmp, "tp_nccl_log"), "--ckpt_dir",
+         os.path.join(tmp, "tp_nccl_ckpt")],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return cfg, cfg_path, proc
+
+
+def _tp_cli_nccl(tmp, cfg, cfg_path, train):
+    """The ``cli.train`` of :func:`_tp_nccl_train_start` (``train``) to its
+    end, then ``cli.synthesize --multihost --tp 1`` over NCCL at world size
+    1 in this process on its checkpoint: rank 0's checkpoint, the groups
+    released, and codes bit-equal to an in-process ``Synthesizer`` on the
+    checkpoint's state.  Returns (checks, the synthesis's launches)."""
+    import numpy as np
+    import torch
+    from prompt_tts_tpu_torch.cli import synthesize as synth_cli
+    from prompt_tts_tpu_torch.cli._common import restore_model_state
+    from prompt_tts_tpu_torch.pipeline import Synthesizer
     ckpt, log_dir = (os.path.join(tmp, "tp_nccl_ckpt"),
                      os.path.join(tmp, "tp_nccl_log"))
-    env = {"PTTS_NUM_PROCESSES": "1", "PTTS_PROCESS_ID": "0"}
+    _reap([train], 300, "torchrun cli.train over NCCL")
+    env = {"PTTS_NUM_PROCESSES": "1", "PTTS_PROCESS_ID": "0",
+           "PTTS_COORDINATOR": f"127.0.0.1:{_free_port()}"}
     try:
-        os.environ.update(env, PTTS_COORDINATOR=f"127.0.0.1:{_free_port()}")
-        trainer = train_cli.main(["--multihost", "--tp", "1", "--smoke",
-                                  "--device", DEVICE,
-                                  "--config_file", cfg_path, "--log_every",
-                                  "1", "--log_dir", log_dir, "--ckpt_dir",
-                                  ckpt])
-        backend_ok = not torch.distributed.is_initialized()
-        os.environ["PTTS_COORDINATOR"] = f"127.0.0.1:{_free_port()}"
+        os.environ.update(env)
         zero_counts()
         _, _, codes = synth_cli.main(
             ["--multihost", "--tp", "1", "--device", DEVICE,
@@ -5334,15 +5354,16 @@ def _tp_cli_nccl(tmp):
              "--text", TEXTS[1], "--out", os.path.join(tmp, "tp_nccl.wav")])
         torch.cuda.synchronize()
         launches = counts()
+        backend_ok = not torch.distributed.is_initialized()
     finally:
-        for k in ("PTTS_COORDINATOR", *env):
+        for k in env:
             os.environ.pop(k, None)
     state, step = restore_model_state(ckpt, cfg)
     ref = Synthesizer(config=cfg, device=DEVICE, num_inference_steps=10,
                       model_state=state)
     _, ref_codes = ref.synthesize(TEXTS[:2], return_codes=True)
     losses = _logged(log_dir, "Loss/train")
-    checks = {"nccl_cli_train": trainer.global_step == 2 and step == 2
+    checks = {"nccl_cli_train_torchrun": step == 2
               and sorted(losses) == [1, 2]
               and all(map(math.isfinite, losses.values())),
               "nccl_groups_released": backend_ok,
@@ -5379,25 +5400,26 @@ def _tp_serve_argv():
             "f32", "--device", DEVICE] + TP_SERVE_ARGV
 
 
-def _tp_serve_start(here, env):
-    """Start ``cli.serve --multihost --tp 2 --backend gloo`` as two
-    processes on the card (f32, DDIM-5, batch 1, ``ModelConfig()``):
-    (the processes, rank 0's port, the start time)."""
+def _tp_serve_start(here, env, flag="--tp"):
+    """Start ``cli.serve --multihost --tp 2 --backend gloo`` (or ``flag``
+    ``--sp``) as two processes on the card (f32, DDIM-5, batch 1,
+    ``ModelConfig()``): (the processes, rank 0's port, the start time)."""
     port = _free_port()
     procs = _spawn_ranks(
         [sys.executable, "-m", "prompt_tts_tpu_torch.cli.serve",
-         "--multihost", "--tp", "2", "--backend", "gloo", "--port",
+         "--multihost", flag, "2", "--backend", "gloo", "--port",
          str(port)] + _tp_serve_argv(),
         TP_RANKS, dict(env, PTTS_COORDINATOR=f"127.0.0.1:{_free_port()}"),
         here)
     return procs, port, time.perf_counter()
 
 
-def _tp_serve(procs, port, t0):
+def _tp_serve(procs, port, t0, one_pcm=None, what="tp serve"):
     """The servers of :func:`_tp_serve_start`, once rank 0 answers: one
     request and a wave of 4 over HTTP, held against the one-process
-    server in this process; SIGTERM to rank 0, whose drain releases rank
-    1."""
+    server in this process (run here unless ``one_pcm`` gives its PCM);
+    SIGTERM to rank 0, whose drain releases rank 1.  Returns (checks,
+    figures, the one-process PCM)."""
     import signal
     import numpy as np
     argv = _tp_serve_argv()
@@ -5405,14 +5427,14 @@ def _tp_serve(procs, port, t0):
         deadline = time.monotonic() + 300
         while True:
             if any(p.poll() is not None for p in procs):
-                _reap(procs, 10, "tp serve")
+                _reap(procs, 10, what)
             try:
                 if _http(port, "GET", "/healthz", timeout=5)[0] == 200:
                     break
             except OSError:
                 pass
             if time.monotonic() > deadline:
-                raise AssertionError("tp serve: rank 0 never answered")
+                raise AssertionError(f"{what}: rank 0 never answered")
             time.sleep(0.5)
         # from the start to rank 0's first answer, beside (a) and (b)
         ready_s = time.perf_counter() - t0
@@ -5420,19 +5442,21 @@ def _tp_serve(procs, port, t0):
         tp_pcm = _serve_pcm(port, TP_SERVE_REQUESTS)
         tp_s = time.perf_counter() - t0
         procs[0].send_signal(signal.SIGTERM)
-        logs = _reap(procs, 120, "tp serve")
+        logs = _reap(procs, 120, what)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    server, sport, thread = _start_server(["--port", "0"] + argv)
-    try:
-        t0 = time.perf_counter()
-        one_pcm = _serve_pcm(sport, TP_SERVE_REQUESTS)
-        one_s = time.perf_counter() - t0
-    finally:
-        _stop_server(server, thread)
+    one_s = None
+    if one_pcm is None:
+        server, sport, thread = _start_server(["--port", "0"] + argv)
+        try:
+            t0 = time.perf_counter()
+            one_pcm = _serve_pcm(sport, TP_SERVE_REQUESTS)
+            one_s = time.perf_counter() - t0
+        finally:
+            _stop_server(server, thread)
     import torch
     def gap(x, y):      # a length that differs fails the check
         if len(x) != len(y):
@@ -5462,7 +5486,7 @@ def _tp_serve(procs, port, t0):
                     "two_requests_equal_share": apart_equal,
                     "denoises_followed": followed,
                     "equal_share": equal, "ready_s": ready_s,
-                    "requests_s": {"tp2": tp_s, "one": one_s}}
+                    "requests_s": {"ranks": tp_s, "one": one_s}}, one_pcm
 
 
 def phase_tp(smi, tmp):
@@ -5475,11 +5499,15 @@ def phase_tp(smi, tmp):
     text encoder's 12) on every rank and #6 not at all (a sharded block
     runs the module arithmetic), and both kernels held against their plain
     versions at those heads and the path's batches (``_tp_attention``);
-    (b) ``cli.train`` and ``cli.synthesize``
-    ``--multihost --tp 1`` over NCCL at world size 1; (c) ``cli.serve
-    --tp 2`` as two gloo processes against the one-process server.  A
-    gather is an all-reduce of a zero-filled whole buffer (exact).  Times are gloo's on one card, through host memory: not a
-    multi-card figure.  Returns the launches summed over the ranks."""
+    (b) ``cli.train --multihost --tp 1`` over NCCL under ``torchrun
+    --standalone --nproc_per_node 1`` (started with the phase), then
+    ``cli.synthesize --multihost --tp 1`` over NCCL at world size 1 here;
+    (c) ``cli.serve --tp 2`` as two gloo processes against the
+    one-process server.  A gather is an all-reduce of a zero-filled whole
+    buffer (exact).  Times are gloo's on one card, through host memory:
+    not a multi-card figure.  Returns the launches summed over the ranks, and
+    the one-process references (the cases' results, the server's PCM),
+    which :func:`phase_sp` holds its ranks to."""
     import torch
     t_phase = time.perf_counter()
     gc.collect()
@@ -5488,21 +5516,26 @@ def phase_tp(smi, tmp):
     os.makedirs(out)
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PTTS_NUM_PROCESSES=str(TP_RANKS),
-               PYTHONPATH=os.pathsep.join(
+               OMP_NUM_THREADS=CHILD_THREADS, PYTHONPATH=os.pathsep.join(
                    [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    # the servers of (c) start first: their start-up overlaps (a) and (b)
+    # the servers of (c) and the train of (b) start first: their start-up
+    # overlaps (a)
     serve_procs = _tp_serve_start(here, env)
+    nccl_train = None
     try:
-        return _tp_checked(smi, tmp, out, here, env, serve_procs, t_phase)
+        nccl_train = _tp_nccl_train_start(tmp, here)
+        return _tp_checked(smi, tmp, out, here, env, serve_procs, nccl_train,
+                           t_phase)
     finally:
-        for p in serve_procs[0]:
+        for p in serve_procs[0] + ([nccl_train[2]] if nccl_train else []):
             if p.poll() is None:
                 p.kill()
                 p.wait()
 
 
-def _tp_checked(smi, tmp, out, here, env, serve_procs, t_phase):
-    """The body of :func:`phase_tp`, with (c)'s servers started."""
+def _tp_checked(smi, tmp, out, here, env, serve_procs, nccl_train, t_phase):
+    """The body of :func:`phase_tp`, with (c)'s servers and (b)'s train
+    started."""
     import torch
     from prompt_tts_tpu_torch.pipeline import full_f32
     t0 = time.perf_counter()
@@ -5551,18 +5584,20 @@ def _tp_checked(smi, tmp, out, here, env, serve_procs, t_phase):
         and r["launches"]["lstm_t" if _default_lstm() == "persistent"
                           else "lstm"] > 0 for r in ranks)
     t0 = time.perf_counter()
-    c, nccl_launches = _tp_cli_nccl(tmp)
+    c, nccl_launches = _tp_cli_nccl(tmp, *nccl_train)
     checks.update(c)
     nccl_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    c, serve = _tp_serve(*serve_procs)
+    c, serve, one_pcm = _tp_serve(*serve_procs)
     checks.update(c)
     serve["after_the_ranks_s"] = time.perf_counter() - t0
     emit({"phase": "tp", "what": f"(a) {TP_RANKS} processes on one card "
-          f"over gloo at --tp 2, ModelConfig(), f32 and bf16: a forward, "
+          f"over gloo at --tp 2, ModelConfig() at {TP_LAYERS_PER_BLOCK} "
+          f"layer a block, f32 and bf16: a forward, "
           f"{TP_STEPS} steps at B={TP_BATCH}, DDIM-{TP_SYNTH_STEPS} of 2 "
-          f"requests, against one process; (b) cli.train and cli.synthesize "
-          f"--multihost --tp 1 over NCCL at world size 1; (c) cli.serve "
+          f"requests, against one process; (b) cli.train (under torchrun "
+          f"--standalone --nproc_per_node 1) and cli.synthesize --multihost "
+          f"--tp 1 over NCCL at world size 1; (c) cli.serve "
           f"--tp 2 (f32, DDIM-{TP_SERVE_STEPS}, batch 1) against the "
           f"one-process server", "checks": checks, "figures": figures,
           "local_head_kernels": attention,
@@ -5573,8 +5608,396 @@ def _tp_checked(smi, tmp, out, here, env, serve_procs, t_phase):
           "phase_s": time.perf_counter() - t_phase, "card": smi})
     if not all(checks.values()):
         raise AssertionError(f"tp checks failed: {checks}")
-    return {k: sum(r["launches"][k] for r in ranks) + nccl_launches[k]
-            for k in KERNELS}
+    return ({k: sum(r["launches"][k] for r in ranks) + nccl_launches[k]
+             for k in KERNELS}, {"one": one, "serve_pcm": one_pcm})
+
+
+SP_RANKS = 2
+# the ring at the flagship's self-attention shapes under sp 2: (whole
+# frames, head dim) of the 900- and 450-frame levels, 8 heads, each rank
+# holding half the frames, at the train steps' batch
+SP_RING_SHAPES = ((900, 32), (450, 64))
+SP_RING_HEADS = 8
+# Two gloo ranks sharing the card at --sp 2 against one process (the tp
+# phase's cases, weights and inputs, whose one-process results it hands
+# on), held to the tp phase's limits (TP_*; the forecast is in PERF.md §6):
+# the sharded levels run the module arithmetic for the resnet blocks, as a
+# tp 2 block does, the GroupNorms take their statistics over the group in
+# two passes, and the ring merges its blocks' outputs in f32, so the f32
+# gaps are rounding's and bf16 adds a rounding of each block's output.
+# The ring alone, against its plain version (ring_attention_plain, JAX's
+# loop) and against one-process attention (the kernel phases' plain
+# versions, at their tolerances, through _hold_call): f32 o and lse
+# ATTN_TOL_F32, the gradients BWD_TOL (1 + max|ref|); bf16 every output
+# FRO_RTOL_BF16 in relative Frobenius norm against the plain ring.
+# cli.train --sp 2 on TINY (f32, cuDNN's default TF32 convolutions on
+# both sides, in other orders) against one process: the losses 1e-2
+# relative.
+SP_CLI_LOSS_RTOL = 1e-2
+
+
+def _sp_gathered(t, seq, dim=1):
+    """The ranks' slices of ``t`` along ``dim`` joined (an exact all-reduce
+    of a zero-filled whole buffer: gloo has no all-gather on the card)."""
+    from prompt_tts_tpu_torch.parallel import sp
+    return sp.gather_time(t.detach().transpose(1, dim), seq).transpose(1, dim)
+
+
+def _sp_ring_check():
+    """Each rank: the ring (kernels #1 and #2 at every step) and its plain
+    version on its halves of the same seeded q/k/v/do at
+    ``SP_RING_SHAPES``, f32 and bf16; the slices are joined and rank 0
+    holds the ring's o, lse, dq, dk and dv against the plain ring and
+    against one-process attention.  Returns rank 0's errors by case (None
+    on the others); raises on rank 0 if one misses."""
+    import torch
+    from prompt_tts_tpu_torch.ops.ring_attention import (
+        ring_attention, ring_attention_plain,
+    )
+    from prompt_tts_tpu_torch.parallel import sp
+    seq = sp.mesh_seq()
+    g = torch.Generator("cuda").manual_seed(23)
+    res, ok = {}, True
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for T, D in SP_RING_SHAPES:
+            q, k, v, _ = attn_inputs(g, TP_BATCH, T, T, SP_RING_HEADS, D,
+                                     False, dtype)
+            do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+            n = T // seq.size
+
+            def mine(t):
+                return t[:, seq.rank * n:(seq.rank + 1) * n].contiguous()
+            got = {}
+            for label, fn in (("ring", ring_attention),
+                              ("plain", ring_attention_plain)):
+                qq, kk, vv = (mine(t).requires_grad_() for t in (q, k, v))
+                o, lse = fn(qq, kk, vv, None, seq, return_lse=True)
+                o.backward(mine(do))
+                got[label] = {"o": _sp_gathered(o, seq),
+                              "lse": _sp_gathered(lse, seq, dim=2),
+                              "dq": _sp_gathered(qq.grad, seq),
+                              "dk": _sp_gathered(kk.grad, seq),
+                              "dv": _sp_gathered(vv.grad, seq)}
+            if seq.rank:
+                continue
+            ring, plain = got["ring"], got["plain"]
+            one, one_ok = _hold_call(q, k, v, None, ring["o"], ring["lse"],
+                                     do, (ring["dq"], ring["dk"], ring["dv"],
+                                          None))
+            vs_plain, plain_ok = {}, True
+            for key in ("o", "lse", "dq", "dk", "dv"):
+                a, b = ring[key].float(), plain[key].float()
+                err = (a - b).abs().max().item()
+                fro = ((a - b).norm() / b.norm()).item()
+                vs_plain[key] = {"max_abs_err": err, "fro_err": fro}
+                if dtype == torch.bfloat16:
+                    plain_ok = plain_ok and fro <= FRO_RTOL_BF16
+                elif key in ("o", "lse"):
+                    plain_ok = plain_ok and err <= ATTN_TOL_F32
+                else:
+                    plain_ok = plain_ok and err <= BWD_TOL * (
+                        1.0 + b.abs().max().item())
+            case = f"{dname} T={T} H={SP_RING_HEADS} D={D}"
+            res[case] = {"vs_one_process": one, "vs_plain_ring": vs_plain,
+                         "ok": one_ok and plain_ok}
+            ok = ok and one_ok and plain_ok
+    if not seq.rank and not ok:
+        raise AssertionError(f"ring attention at sp {seq.size}: {res}")
+    return res if not seq.rank else None
+
+
+def sp_rank_main(out):
+    """One rank of :func:`phase_sp` (a process of its own, started with
+    the ``PTTS_*`` variables): gloo, since both ranks share the one card,
+    a seq axis of 2; both dtypes of :func:`_tp_case` (the main path: their
+    launches and the levels that rang are read just after), then the ring
+    on its own (:func:`_sp_ring_check`); its results go to
+    ``rank<r>.pt``."""
+    import torch
+    from prompt_tts_tpu_torch.parallel import (
+        barrier, init_distributed, seq_rank, seq_size, world_rank,
+    )
+    from prompt_tts_tpu_torch.parallel import sp
+    from prompt_tts_tpu_torch.pipeline import full_f32
+    entered = time.time()
+    device = init_distributed(DEVICE, backend="gloo", n_seq=SP_RANKS)
+    rank = world_rank()
+    res = {"rank": rank, "device": str(device),
+           "backend": torch.distributed.get_backend(),
+           "seq": (seq_rank(), seq_size())}
+    cfg = _tp_config()
+    state = _tp_state(cfg)
+    # wall clock stamps: the phase reads the start-up against its launch
+    res["entered_at"], res["cases_at"] = entered, time.time()
+    zero_counts()
+    sp.reset_ring_traces()
+    t0 = time.perf_counter()
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        res[name] = _tp_case(device, dtype, cfg, state,
+                             os.path.join(out, f"{name}_{rank}"))
+    res["launches"] = counts()
+    res["ring_tqs"] = sp.ring_trace_tqs()
+    res["cases_s"] = time.perf_counter() - t0
+    del state
+    t0 = time.perf_counter()
+    with full_f32():
+        res["ring"] = _sp_ring_check()
+    res["ring_s"] = time.perf_counter() - t0
+    barrier()
+    torch.distributed.destroy_process_group()
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def _sp_hold(name, ranks, one):
+    """The checks and figures of one dtype: the seq ranks against each
+    other (the same bits: each holds the whole output and the averaged
+    gradient) and rank 0 against one process, at the tp phase's limits."""
+    import torch
+    f32 = name == "f32"
+    a, b = (r[name] for r in ranks)
+    o = one[name]
+    grad_gap, grad_over, tensor_gap, _ = _grad_gaps(
+        a["grad"], o["grad"],
+        TP_F32_TENSOR_GRAD_RTOL if f32 else TP_BF16_TENSOR_GRAD_RTOL)
+    norm_gap = max(abs(x - y) / y for x, y in zip(a["grad_norms"],
+                                                  o["grad_norms"]))
+    upd_sp = math.sqrt(sum(a["update_sq"].values()))
+    upd_one = math.sqrt(sum(o["update_sq"].values()))
+    fwd_gap = _rel_gap(a["forward"], o["forward"])
+    loss_gap = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                       o["losses"]))
+    lat_gap = (float((a["latents"] - o["latents"]).abs().max()) if f32
+               else _rel_gap(a["latents"], o["latents"]))
+    agree = float((a["codes"] == o["codes"]).mean())
+    figures = {"forward_rel_gap": fwd_gap, "loss_rel_gap": loss_gap,
+               "losses": {"sp2": a["losses"], "one": o["losses"]},
+               "grad_norm": {"sp2": a["grad_norms"], "one": o["grad_norms"]},
+               "grad_norm_rel_gap": norm_gap, "grad_rel_gap": grad_gap,
+               "grad_tensor_rel_gap_max": tensor_gap,
+               "grad_tensors_over": grad_over,
+               "update_norm": {"sp2": upd_sp, "one": upd_one},
+               "latent_gap": lat_gap, "code_agreement": agree,
+               "walls_s": {"sp2": {k: a[k] for k in ("forward_s", "step_s",
+                                                     "synth_s")},
+                           "one": {k: o[k] for k in ("forward_s", "step_s",
+                                                     "synth_s")}}}
+    checks = {
+        f"{name}_ranks_agree": torch.equal(a["forward"], b["forward"])
+        and a["losses"] == b["losses"]
+        and torch.equal(a["latents"], b["latents"])
+        and all(torch.equal(g, b["grad"][n]) for n, g in a["grad"].items()),
+        f"{name}_seq_sharded": a["sp"] == SP_RANKS and a["tp"] == 1,
+        f"{name}_forward": fwd_gap <= (TP_F32_FWD_RTOL if f32
+                                       else TP_BF16_FWD_RTOL),
+        f"{name}_losses": loss_gap <= (TP_F32_LOSS_RTOL if f32
+                                       else TP_BF16_LOSS_RTOL),
+        f"{name}_grad_norms": norm_gap <= (TP_F32_LOSS_RTOL if f32
+                                           else TP_BF16_LOSS_RTOL),
+        f"{name}_grads": grad_gap <= (TP_F32_GRAD_RTOL if f32
+                                      else TP_BF16_GRAD_RTOL)
+        and not grad_over,
+        f"{name}_update": abs(upd_sp - upd_one) / upd_one <= (
+            TP_F32_UPDATE_RTOL if f32 else TP_BF16_UPDATE_RTOL),
+        f"{name}_latents": lat_gap <= (TP_F32_LATENT_ATOL if f32
+                                       else TP_BF16_FWD_RTOL),
+    }
+    if f32:
+        checks["f32_codes"] = agree > TP_CODE_AGREE
+    return checks, figures
+
+
+def _pcm_gaps(got, want):
+    """Relative Frobenius gap and bit-equal share of two int16 PCMs (a
+    length that differs: inf and 0)."""
+    import numpy as np
+    import torch
+    if len(got) != len(want):
+        return math.inf, 0.0
+    return (_rel_gap(torch.from_numpy(got.astype(np.float32)),
+                     torch.from_numpy(want.astype(np.float32))),
+            float((got == want).mean()))
+
+
+def _sp_cli_start(tmp, here, env):
+    """Start ``cli.train --multihost --sp 2 --backend gloo`` under
+    ``torchrun --standalone --nproc_per_node 2`` (the launcher's path) and
+    a ``cli.synthesize --multihost --sp 2 --backend gloo`` pair, on
+    ``TINY`` (levels 40/20/10/5: three of the four shard): (the config's
+    path, the processes by CLI)."""
+    from prompt_tts_tpu_torch.config import Config, ModelConfig, TrainConfig
+    cfg_path = os.path.join(tmp, "sp_tiny.json")
+    Config(model=ModelConfig(**TINY),
+           train=TrainConfig(batch_size=8, num_train_epochs=1,
+                             learning_rate=1e-3,
+                             lr_warmup_steps=0)).to_json(cfg_path)
+    multi = ["--multihost", "--sp", "2", "--backend", "gloo"]
+    train = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(SP_RANKS), "-m",
+         "prompt_tts_tpu_torch.cli.train"] + multi
+        + _sp_train_argv(cfg_path)
+        + ["--log_dir", os.path.join(tmp, "sp_cli_log")],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    synth = _spawn_ranks(
+        [sys.executable, "-m", "prompt_tts_tpu_torch.cli.synthesize"]
+        + multi + _sp_synth_argv(cfg_path)
+        + ["--out", os.path.join(tmp, "sp.wav")],
+        SP_RANKS, dict(env, PTTS_COORDINATOR=f"127.0.0.1:{_free_port()}"),
+        here)
+    return cfg_path, {"train": [train], "synthesize": synth}
+
+
+def _sp_train_argv(cfg_path):
+    return ["--smoke", "--device", DEVICE, "--config_file", cfg_path,
+            "--log_every", "1"]
+
+
+def _sp_synth_argv(cfg_path):
+    return ["--device", DEVICE, "--config_file", cfg_path, "--steps", "10",
+            "--dtype", "f32", "--text", TEXTS[0], "--text", TEXTS[1]]
+
+
+def _sp_cli_finish(tmp, cfg_path, procs):
+    """The same two CLIs in this process, then the pairs of
+    :func:`_sp_cli_start` held to them: the losses (``SP_CLI_LOSS_RTOL``),
+    the wavs (the serve limits, ``TP_SERVE_*``).  Returns (checks,
+    figures)."""
+    import numpy as np
+    from prompt_tts_tpu_torch.cli import synthesize as synth_cli
+    from prompt_tts_tpu_torch.cli import train as train_cli
+    t0 = time.perf_counter()
+    try:
+        train_cli.main(_sp_train_argv(cfg_path)
+                       + ["--log_dir", os.path.join(tmp, "sp_one_log")])
+        _, one_wavs, _ = synth_cli.main(
+            _sp_synth_argv(cfg_path)
+            + ["--out", os.path.join(tmp, "sp_one.wav")])
+        logs = {k: _reap(ps, 300, f"sp cli.{k}") for k, ps in procs.items()}
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    sp_losses = _logged(os.path.join(tmp, "sp_cli_log"), "Loss/train")
+    one_losses = _logged(os.path.join(tmp, "sp_one_log"), "Loss/train")
+    loss_gap = max(abs(sp_losses[s] - one_losses[s]) / abs(one_losses[s])
+                   for s in one_losses) if sorted(sp_losses) == sorted(
+                       one_losses) else math.inf
+    wav_gaps = []
+    for i, wav in enumerate(one_wavs):
+        want = np.clip(np.round(wav * 32767.0), -32768, 32767).astype(
+            np.int16)
+        with open(os.path.join(tmp, f"sp_{i}.wav"), "rb") as f:
+            got = np.frombuffer(_wav_pcm(f.read()), "<i2")
+        wav_gaps.append(_pcm_gaps(got, want))
+    checks = {"cli_train_sp2_torchrun": sorted(sp_losses) == [1, 2]
+              and all(map(math.isfinite, sp_losses.values()))
+              and loss_gap <= SP_CLI_LOSS_RTOL,
+              "cli_synthesize_sp2": all(
+                  g <= TP_SERVE_PCM_RTOL and e >= TP_SERVE_EQUAL_SHARE
+                  for g, e in wav_gaps)
+              and all("synthesized 2 utterance(s)" in log
+                      for log in logs["synthesize"])}
+    return checks, {"train_losses": {"sp2": sp_losses, "one": one_losses},
+                    "train_loss_rel_gap": loss_gap,
+                    "synthesize_pcm_rel_gap_equal_share": wav_gaps,
+                    "after_the_ranks_s": time.perf_counter() - t0}
+
+
+def phase_sp(smi, tmp, refs):
+    """Sequence parallelism on one card: (a) two processes sharing it over
+    gloo at ``--sp 2`` (``sp_rank_main``), ``ModelConfig()`` at full
+    width, f32 (TF32 off) and bf16: the tp phase's forward, 3 train steps
+    at B=4 and DDIM-10 of 2 requests, held against the one-process results
+    that phase computed on the same weights and inputs (``refs``), kernels
+    #1 and #2 launched on every rank (#1 at every step of the ring), the
+    ring at 900 and 450 frames only (225 and 113 run whole); the ring
+    alone at the flagship's self-attention shapes against its plain
+    version and one-process attention (``_sp_ring_check``); (b)
+    ``cli.train`` and ``cli.synthesize --sp 2`` pairs against the same CLIs
+    in this process, the train pair under ``torchrun --standalone``
+    (``_sp_cli_start``, ``_sp_cli_finish``); (c) ``cli.serve --sp 2
+    --backend gloo`` against the one-process server's PCM (``refs``).  The
+    processes of (a), (b) and (c) start together and run side by side.
+    The halos, the GroupNorm statistics and the gathers are all-reduces,
+    the ring's blocks cross through host memory: gloo's times on one card,
+    not a multi-card figure.  Returns the launches summed over the ranks."""
+    import torch
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PTTS_NUM_PROCESSES=str(SP_RANKS),
+               OMP_NUM_THREADS=CHILD_THREADS, PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = os.path.join(tmp, "sp_ranks")
+    os.makedirs(out)
+    serve, cli, ranks = ([], 0, 0.0), {}, []
+    try:
+        serve = _tp_serve_start(here, env, flag="--sp")
+        cfg_path, cli = _sp_cli_start(tmp, here, env)
+        launched = time.time()
+        ranks = _spawn_ranks(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.sp_rank_main({out!r})"],
+            SP_RANKS, dict(env, PTTS_COORDINATOR=f"127.0.0.1:{_free_port()}"),
+            here)
+        checks, figures = {}, {}
+        # the one-process CLIs meanwhile, then the pairs
+        c, cli_figures = _sp_cli_finish(tmp, cfg_path, cli)
+        checks.update(c)
+        _reap(ranks, 600, "sp ranks")
+        ranks_s = time.perf_counter() - t_phase
+        c, serve_figures, _ = _tp_serve(*serve, one_pcm=refs["serve_pcm"],
+                                        what="sp serve")
+        checks.update(c)
+    finally:
+        for p in (ranks + serve[0] + [p for ps in cli.values() for p in ps]):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(SP_RANKS)]
+    for name in ("f32", "bf16"):
+        c, figures[name] = _sp_hold(name, ranks, refs["one"])
+        checks.update(c)
+    checks["gloo_on_one_card"] = all(
+        r["backend"] == "gloo" and r["device"] == "cuda:0"
+        and r["seq"] == (i, SP_RANKS) for i, r in enumerate(ranks))
+    checks["ring_levels"] = all(r["ring_tqs"] == [450, 900] for r in ranks)
+    checks["launched"] = all(
+        r["launches"]["attention_fwd"] > 0
+        and r["launches"]["attention_bwd"] > 0
+        and r["launches"]["resnet"] > 0
+        and r["launches"]["lstm_t" if _default_lstm() == "persistent"
+                          else "lstm"] > 0 for r in ranks)
+    checks["ring_kernels"] = all(c["ok"] for c in ranks[0]["ring"].values())
+    emit({"phase": "sp", "what": f"(a) {SP_RANKS} processes on one card "
+          f"over gloo at --sp 2, ModelConfig() at {TP_LAYERS_PER_BLOCK} "
+          f"layer a block, f32 and bf16: a forward, "
+          f"{TP_STEPS} steps at B={TP_BATCH}, DDIM-{TP_SYNTH_STEPS} of 2 "
+          f"requests, against one process; the ring at "
+          f"{SP_RING_SHAPES} (frames, D), {SP_RING_HEADS} heads, B="
+          f"{TP_BATCH}; (b) cli.train (under torchrun --standalone) and "
+          f"cli.synthesize --sp 2 on TINY against one process; (c) "
+          f"cli.serve --sp 2 (f32, "
+          f"DDIM-{TP_SERVE_STEPS}, batch 1) against the one-process server",
+          "checks": checks, "figures": figures,
+          "ring_kernels": ranks[0]["ring"],
+          "ring_tqs": [r["ring_tqs"] for r in ranks],
+          "launches": [r["launches"] for r in ranks], "cli": cli_figures,
+          "serve": serve_figures, "ranks_s": ranks_s,
+          "rank_start_s": [r["entered_at"] - launched for r in ranks],
+          "rank_setup_s": [r["cases_at"] - r["entered_at"] for r in ranks],
+          "rank_cases_s": [r["cases_s"] for r in ranks],
+          "rank_ring_s": [r["ring_s"] for r in ranks],
+          "phase_s": time.perf_counter() - t_phase, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"sp checks failed: {checks}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
 
 
 def _default_lstm():
@@ -5808,8 +6231,9 @@ def main():
         profiled = timed(phase_profile)(smi, tmp, batch)
         ddp_nccl = timed(phase_ddp_nccl)(smi, tmp)
         ddp_ranks = timed(phase_ddp_two_ranks)(smi, tmp)
-        timed(phase_torchrun)(smi, tmp)
-        tp = timed(phase_tp)(smi, tmp)
+        tp, one_refs = timed(phase_tp)(smi, tmp)
+        sp = timed(phase_sp)(smi, tmp, one_refs)
+        del one_refs
     rvq["differ"]["prompt_latents"] = prompt_rvq_res["differ"]
     rvq["max_abs_err"] = max(rvq["max_abs_err"],
                              prompt_rvq_res["max_score_gap"], serve_rvq_gap)
@@ -5829,7 +6253,8 @@ def main():
                  "export": exported[k], "aot": aot_art[k], "ddpm": ddpm[k],
                  "profile": profiled[k], "ddp_nccl": ddp_nccl[k],
                  "ddp_two_ranks": ddp_ranks[k], "codec_bf16": codec_bf16[k],
-                 "unet_variants": variants[k], "tp": tp[k]} for k in KERNELS}
+                 "unet_variants": variants[k], "tp": tp[k], "sp": sp[k]}
+             for k in KERNELS}
     launches = {k: sum(p.values()) for k, p in paths.items()}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the paths never ran: {launches}")

@@ -122,15 +122,20 @@ def export_synthesis(synth, batch_size: int, path: str,
     their state).  ``pcm16``: the device-quantized int16 program (the
     serving wire format) instead of the f32 wav.  Returns the header, with
     the export's, and the save's, seconds under ``"seconds"``.  A
-    ``Synthesizer`` sharded over a model group (``synth.tp > 1``) raises
-    ``ValueError``, as the JAX package refuses a meshed one.
+    ``Synthesizer`` sharded over a model group (``synth.tp > 1``) or a
+    seq group (``synth.sp > 1``) raises ``ValueError``, as the JAX package
+    refuses a meshed one.
     """
-    if getattr(synth, "tp", 1) > 1:
-        raise ValueError(
-            "cannot export a model-group-sharded Synthesizer (tp): the "
-            "traced program contains collectives over a process group the "
-            "loading process would have to reconstruct; export from an "
-            "unsharded Synthesizer (the artifact is single-device)")
+    for what, size in (("model-group-sharded Synthesizer (tp)",
+                        getattr(synth, "tp", 1)),
+                       ("seq-group-sharded Synthesizer (sp)",
+                        getattr(synth, "sp", 1))):
+        if size > 1:
+            raise ValueError(
+                f"cannot export a {what}: the traced program contains "
+                "collectives over a process group the loading process "
+                "would have to reconstruct; export from an unsharded "
+                "Synthesizer (the artifact is single-device)")
     mcfg = synth.config.model
     dev = synth.device
     B = batch_size

@@ -58,8 +58,10 @@ def add_parallel_args(p, multihost_help: str) -> None:
                         "group (parallel/tp.py; with --multihost, the "
                         "world size a multiple of it).")
     p.add_argument("--sp", type=int, default=1,
-                   help="Sequence-parallel degree: only 1 (not ported, "
-                        "ROADMAP.md §1 item 4).")
+                   help="Sequence-parallel degree: the ranks of a seq "
+                        "group, over which the UNet's latent time is "
+                        "sharded (parallel/sp.py; with --multihost, the "
+                        "world size a multiple of --tp x --sp).")
     p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
                    help="With --multihost: the process group's backend "
                         "(default NCCL on a card, gloo on the CPU; gloo "
@@ -67,13 +69,22 @@ def add_parallel_args(p, multihost_help: str) -> None:
 
 
 def check_parallel_flags(args) -> None:
-    """Refuse ``--sp`` other than 1, and ``--tp`` other than 1 without
+    """Refuse ``--tp`` or ``--sp`` below 1, or above 1 without
     ``--multihost`` (``SystemExit``)."""
-    if args.sp != 1:
-        raise SystemExit("--sp: sequence parallelism is not ported "
-                         "(ROADMAP.md §1 item 4)")
-    if args.tp < 1:
-        raise SystemExit(f"--tp must be >= 1, got {args.tp}")
-    if args.tp > 1 and not args.multihost:
-        raise SystemExit("--tp > 1 runs over processes: pass --multihost "
-                         "(under torchrun or the PTTS_* variables)")
+    for flag, n in (("--tp", args.tp), ("--sp", args.sp)):
+        if n < 1:
+            raise SystemExit(f"{flag} must be >= 1, got {n}")
+        if n > 1 and not args.multihost:
+            raise SystemExit(f"{flag} > 1 runs over processes: pass "
+                             "--multihost (under torchrun or the PTTS_* "
+                             "variables)")
+
+
+def check_one_block(args) -> None:
+    """Refuse a world of more than one data row (``SystemExit``): synthesis
+    and serving run one model x seq group."""
+    from prompt_tts_tpu_torch.parallel import data_size
+    if data_size() != 1:
+        raise SystemExit(f"--multihost synthesis runs one model x seq "
+                         f"group: the world size must be --tp x --sp "
+                         f"({args.tp} x {args.sp})")

@@ -9,8 +9,8 @@ into one file (``prompt_tts_tpu_torch/aot.py``).  A serving box then runs
 config or checkpoint present.  ``--device`` and ``--dtype`` take the place
 of the JAX CLI's ``--platforms``: the artifact runs on the device type it
 was exported on.  The artifact is single-device: ``aot.export_synthesis``
-refuses a ``Synthesizer`` sharded over a model group (``--tp``), as the
-JAX package refuses a meshed one.
+refuses a ``Synthesizer`` sharded over a model group (``--tp``) or a seq
+group (``--sp``), as the JAX package refuses a meshed one.
 
   python -m prompt_tts_tpu_torch.cli.export_program --out synth_b8.ptts \
       --check

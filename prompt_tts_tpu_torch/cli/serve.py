@@ -25,15 +25,15 @@ batcher and hold one of two slots, each with its own stream.
 
 ``--tp N`` with ``--multihost`` (N processes under torchrun or the
 ``PTTS_*`` variables, one model group) shards the denoiser over the N
-ranks (``parallel/tp.py``).  The JAX server is one controller; here only
-rank 0 runs the HTTP server, the batcher and the slots, and its
-``Synthesizer`` leads (``Synthesizer.lead``): each denoise, from whichever
-thread, first broadcasts its inputs (ids, masks, x_T from the request's
-seed, prompt latents, the sampler and step count) to the group, one at a
-time under a lock, so its collectives are the only ones in flight.  The
-other ranks run the same denoises in a follow loop
-(``Synthesizer.follow``) and exit when rank 0 shuts down.  ``--sp`` other
-than 1 is refused: it is not ported yet.
+ranks (``parallel/tp.py``), and ``--sp M`` its latent time over M ranks
+(``parallel/sp.py``; the world is N x M ranks). The JAX server is one
+controller; here only rank 0 runs the HTTP server, the batcher and the
+slots, and its ``Synthesizer`` leads (``Synthesizer.lead``): each
+denoise, from whichever thread, first broadcasts its inputs (ids, masks,
+x_T from the request's seed, prompt latents, the sampler and step count)
+to the group, one at a time under a lock, so its collectives are the
+only ones in flight.  The other ranks run the same denoises in a follow
+loop (``Synthesizer.follow``) and exit when rank 0 shuts down.
 
   python -m prompt_tts_tpu_torch.cli.serve --device cpu --steps 2 \\
       --max_batch 2 --config_file tiny.json
@@ -41,6 +41,8 @@ than 1 is refused: it is not ported yet.
   curl -d '{"text": "Hello there."}' localhost:8777/synthesize -o x.wav
   torchrun --nproc_per_node 2 -m prompt_tts_tpu_torch.cli.serve \
       --multihost --tp 2
+  torchrun --nproc_per_node 2 -m prompt_tts_tpu_torch.cli.serve \
+      --multihost --sp 2 --backend gloo
 """
 
 import argparse
@@ -59,7 +61,7 @@ import numpy as np
 import torch
 
 from prompt_tts_tpu_torch.cli._common import (
-    add_parallel_args, check_parallel_flags,
+    add_parallel_args, check_one_block, check_parallel_flags,
 )
 
 log = logging.getLogger(__name__)
@@ -129,8 +131,9 @@ def parse_args(argv=None):
                         "for one of the two in-flight slots before "
                         "rejecting with 429.")
     add_parallel_args(p, "Run as one rank of a process group (torchrun or "
-                         "the PTTS_* variables), for --tp; the world is one "
-                         "model group and rank 0 serves.")
+                         "the PTTS_* variables), for --tp and --sp; the "
+                         "world is one model x seq group and rank 0 "
+                         "serves.")
     return p.parse_args(argv)
 
 
@@ -684,7 +687,7 @@ def build_server(argv=None, device=None) -> Server:
     """The server of ``argv``, warmed up and listening (not yet serving):
     the ``Synthesizer`` (on ``device``, else ``--device``), the speaker
     registry, the warmup, the batcher and the socket.  ``startup`` holds
-    the seconds each took.  On rank 0 of a model group of ``--tp`` ranks
+    the seconds each took.  On rank 0 of a group of ``--tp`` x ``--sp`` ranks
     the ``Synthesizer`` leads the others (which run :func:`follow`) from
     the warmup on."""
     args = parse_args(argv)
@@ -692,7 +695,7 @@ def build_server(argv=None, device=None) -> Server:
     synth = _synthesizer(args, device or args.device)
     config = synth.config
     prompted = config.model.prompt_conditioning
-    if synth.tp > 1:
+    if synth.tp * synth.sp > 1:
         synth.lead()
     t_build = time.perf_counter()
     try:
@@ -718,11 +721,12 @@ def build_server(argv=None, device=None) -> Server:
 
 
 def follow(argv=None, device=None) -> int:
-    """A rank of the model group other than 0: build the same
+    """A rank of the model x seq group other than 0: build the same
     ``Synthesizer`` and run the denoises rank 0 sends until it shuts down.
     Returns how many ran."""
     synth = _synthesizer(parse_args(argv), device)
-    log.info("rank of a model group of %d: following rank 0", synth.tp)
+    log.info("rank of a group of %d x %d: following rank 0", synth.tp,
+             synth.sp)
     n = synth.follow()
     log.info("rank 0 shut down after %d denoises", n)
     return n
@@ -735,16 +739,13 @@ def main(argv=None):
     if not args.multihost:
         _serve(argv)
         return
-    from prompt_tts_tpu_torch.parallel import (
-        data_size, init_distributed, model_rank,
-    )
+    from prompt_tts_tpu_torch.parallel import block_rank, init_distributed
     device = init_distributed(args.device, backend=args.backend,
-                              n_model=args.tp, timeout=IDLE_TIMEOUT)
+                              n_model=args.tp, n_seq=args.sp,
+                              timeout=IDLE_TIMEOUT)
     try:
-        if data_size() != 1:
-            raise SystemExit(f"--multihost serving runs one model group: "
-                             f"the world size must be --tp ({args.tp})")
-        if model_rank() != 0:
+        check_one_block(args)
+        if block_rank() != 0:
             follow(argv, device)
         else:
             _serve(argv, device)

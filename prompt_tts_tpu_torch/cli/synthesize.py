@@ -13,9 +13,9 @@ given is random, drawn from seeded generators, and the output is noise.
 window (``Synthesizer.synthesize_long``) and writes one wav.  ``--tp N``
 with ``--multihost`` (under torchrun or the ``PTTS_*`` variables, N
 processes) shards the denoiser over the N ranks of one model group
-(``parallel/tp.py``): every rank runs the same synthesis, and rank 0
-writes.  ``--sp`` (sequence parallelism) other than 1 is refused: it is
-not ported yet.
+(``parallel/tp.py``), and ``--sp M`` its latent time over M ranks
+(``parallel/sp.py``; the world is N x M ranks): every rank runs the same
+synthesis, and rank 0 writes.
 
   python -m prompt_tts_tpu_torch.cli.synthesize --text "Hello." --out x.wav \
       --ckpt_dir ckpt --ema --codec_params codec.pt
@@ -26,6 +26,8 @@ not ported yet.
       --text "A passage of several sentences. ..." --out long.wav
   torchrun --nproc_per_node 2 -m prompt_tts_tpu_torch.cli.synthesize \
       --multihost --tp 2 --text "Hello." --out x.wav
+  torchrun --nproc_per_node 2 -m prompt_tts_tpu_torch.cli.synthesize \
+      --multihost --sp 2 --backend gloo --text "Hello." --out x.wav
 """
 
 import argparse
@@ -36,7 +38,7 @@ import time
 import torch
 
 from prompt_tts_tpu_torch.cli._common import (
-    add_parallel_args, check_parallel_flags,
+    add_parallel_args, check_one_block, check_parallel_flags,
 )
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -98,8 +100,8 @@ def parse_args(argv=None):
                         "condition each window on the previous window's "
                         "generated tail codes (sequential windows).")
     add_parallel_args(p, "Run as one rank of a process group (torchrun or "
-                         "the PTTS_* variables), for --tp; the world is one "
-                         "model group.")
+                         "the PTTS_* variables), for --tp and --sp; the "
+                         "world is one model x seq group.")
     return p.parse_args(argv)
 
 
@@ -133,13 +135,11 @@ def main(argv=None):
     check_parallel_flags(args)
     if not args.multihost:
         return _synthesize(args, texts, args.device)
-    from prompt_tts_tpu_torch.parallel import data_size, init_distributed
+    from prompt_tts_tpu_torch.parallel import init_distributed
     device = init_distributed(args.device, backend=args.backend,
-                              n_model=args.tp)
+                              n_model=args.tp, n_seq=args.sp)
     try:
-        if data_size() != 1:
-            raise SystemExit(f"--multihost synthesis runs one model group: "
-                             f"the world size must be --tp ({args.tp})")
+        check_one_block(args)
         return _synthesize(args, texts, device)
     finally:
         torch.distributed.destroy_process_group()

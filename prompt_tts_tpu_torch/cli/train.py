@@ -12,12 +12,14 @@ on synthetic data), --init_from_ref (a warm start from a reference-repo
 global batch), --per_process_data (with --multihost: each process
 collates only its rows), --tp N (with --multihost: tensor parallelism,
 the model's Megatron slices over model groups of N ranks, the world laid
-out as world/N data ranks x N, ``parallel/tp.py``) and --device (``cuda``
-unless the caller asks for ``cpu``; under --multihost
-``cuda:LOCAL_RANK``).  Both model families train: a config with
-``prompt_conditioning`` gets prompt crops of ``prompt_frames`` in every
-batch.  Without a warm start the weights start from ``train.seed``.
---sp (sequence parallelism) other than 1 is refused: it is not ported yet.
+out as world/N data ranks x N, ``parallel/tp.py``), --sp M (with
+--multihost: sequence parallelism, the UNet's latent time sharded over
+seq groups of M ranks, the world laid out as data x N x M,
+``parallel/sp.py``) and --device (``cuda`` unless the caller asks for
+``cpu``; under --multihost ``cuda:LOCAL_RANK``). Both model families
+train: a config with ``prompt_conditioning`` gets prompt crops of
+``prompt_frames`` in every batch.  Without a warm start the weights
+start from ``train.seed``.
 
   python -m prompt_tts_tpu_torch.cli.train --data_file codes.tar \\
       --bf16 --ckpt_dir ckpt --ema_decay 0.999
@@ -28,6 +30,8 @@ batch.  Without a warm start the weights start from ``train.seed``.
       --multihost --data_file codes.tar --bf16 --ckpt_dir ckpt
   torchrun --nproc_per_node 8 -m prompt_tts_tpu_torch.cli.train \\
       --multihost --tp 2 --data_file codes.tar --bf16 --ckpt_dir ckpt
+  torchrun --nproc_per_node 8 -m prompt_tts_tpu_torch.cli.train \\
+      --multihost --tp 2 --sp 2 --data_file codes.tar --ckpt_dir ckpt
 
 Under --multihost the rendezvous comes from torchrun's environment, or
 from ``PTTS_COORDINATOR`` (``host:port``), ``PTTS_NUM_PROCESSES`` and
@@ -93,8 +97,8 @@ def parse_args(argv=None):
                         "hosts' rows).")
     add_parallel_args(p, "Data parallelism over processes (one per GPU, "
                          "under torchrun or the PTTS_* variables): "
-                         "torch.distributed with DDP, and with --tp tensor "
-                         "parallelism.")
+                         "torch.distributed with DDP, with --tp tensor "
+                         "and with --sp sequence parallelism.")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -117,7 +121,7 @@ def main(argv=None):
     if args.multihost:
         from prompt_tts_tpu_torch.parallel import init_distributed
         device = init_distributed(device, backend=args.backend,
-                                  n_model=args.tp)
+                                  n_model=args.tp, n_seq=args.sp)
     try:
         return _train(args, device)
     finally:

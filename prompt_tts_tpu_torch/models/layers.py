@@ -23,6 +23,14 @@ heads (q/k/v column-parallel), its ``to_out`` and a ``GEGLUFeedForward``'s
 the model group before the bias), and a sliced ``Conv1d`` or ``Embedding``
 gathers its output channels.  With ``tp`` None (the default) nothing
 changes.
+
+Sequence parallelism (``parallel/sp.py``): the UNet sets ``seq`` (a
+``parallel.sp.SeqGroup``) on the layers of the levels it runs sharded,
+whose ``[B, T, C]`` inputs are then this rank's slice of time.  A k=3
+``Conv1d`` pads its slice with its neighbours' edge frames, a
+``GroupNorm`` reduces its statistics over the group, an ``Attention``
+runs its self-attention on the ring, and the dropouts keep their slice of
+one whole mask.  With ``seq`` None nothing changes.
 """
 
 from typing import Optional, Tuple
@@ -32,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from prompt_tts_tpu_torch.ops.attention import scaled_dot_product_attention
+from prompt_tts_tpu_torch.parallel import sp
 from prompt_tts_tpu_torch.parallel.tp import (
     copy_to_model, gather_from_model, reduce_from_model, sharded_dropout,
 )
@@ -75,7 +84,11 @@ class Embedding(nn.Embedding):
 
 
 class Conv1d(nn.Module):
-    """1-D convolution on ``[B, T, C]`` with torch-style explicit padding."""
+    """1-D convolution on ``[B, T, C]`` with torch-style explicit padding.
+    With ``seq`` set its input is this rank's slice of time: a k=3 stride-1
+    convolution takes one frame of each neighbour's, a k=3 stride-2 one
+    (an even slice) the previous rank's last frame only, and the output is
+    this rank's slice of the whole convolution's."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride: int = 1, padding: Optional[int] = None,
@@ -89,21 +102,42 @@ class Conv1d(nn.Module):
     compute_dtype: Optional[torch.dtype] = None
     # set: the output channels are sliced (column-parallel) and gathered
     tp = None
+    # set: the input is this rank's slice of time (parallel/sp.py)
+    seq = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.conv
         dt = self.compute_dtype or c.weight.dtype
         if self.tp is not None:
             x = copy_to_model(x, self.tp)
+        if self.seq is not None and c.kernel_size[0] > 1:
+            return self._forward_seq(x, dt)
         x = x.to(dt).transpose(1, 2)
         y = c._conv_forward(x, c.weight.to(dt),
                             _cast(c.bias, dt)).transpose(1, 2)
         return y if self.tp is None else gather_from_model(y, self.tp)
 
+    def _forward_seq(self, x: torch.Tensor, dt) -> torch.Tensor:
+        c = self.conv
+        (k,), (stride,), (pad,) = c.kernel_size, c.stride, c.padding
+        if k != 3 or pad != 1 or stride not in (1, 2) or (
+                stride == 2 and x.shape[1] % 2):
+            raise ValueError(f"a time-sharded convolution takes k=3, "
+                             f"padding 1, stride 1 or 2 (on an even slice); "
+                             f"got k={k}, padding {pad}, stride {stride}, "
+                             f"{x.shape[1]} frames")
+        x = sp.halo(x, self.seq, 1, 1 if stride == 1 else 0)
+        y = F.conv1d(x.to(dt).transpose(1, 2), c.weight.to(dt),
+                     _cast(c.bias, dt), stride).transpose(1, 2)
+        return y if self.tp is None else gather_from_model(y, self.tp)
+
 
 class GroupNorm(nn.Module):
     """GroupNorm over the channel axis of ``[B, T, C]`` (torch semantics),
-    statistics in f32."""
+    statistics in f32; with ``seq`` set over the whole sequence of which
+    the input is this rank's slice (``parallel.sp.group_norm``)."""
+
+    seq = None
 
     def __init__(self, num_groups: int, channels: int, epsilon: float = 1e-5,
                  device=None):
@@ -113,6 +147,9 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = self.norm
+        if self.seq is not None:
+            return sp.group_norm(x, n.num_groups, n.weight, n.bias, n.eps,
+                                 self.seq)
         y = F.group_norm(x.float().transpose(1, 2), n.num_groups,
                          n.weight.float(), n.bias.float(), n.eps)
         return y.transpose(1, 2).to(x.dtype)
@@ -131,9 +168,12 @@ class Attention(nn.Module):
     """Multi-head attention with optional cross-context and additive bias
     (diffusers ``CrossAttention`` numerics: q/k/v without bias, output
     projection with bias, scale ``head_dim**-0.5``).  Under tensor
-    parallelism ``num_heads`` is the local count."""
+    parallelism ``num_heads`` is the local count; under sequence
+    parallelism (``seq`` set) the queries are this rank's time slice, and
+    self-attention runs on the ring."""
 
     tp = None
+    seq = None
 
     def __init__(self, query_dim: int, context_dim: int, num_heads: int,
                  head_dim: int, out_dim: Optional[int] = None,
@@ -170,17 +210,22 @@ class Attention(nn.Module):
             Tk = ctx.shape[1]
             k = self.to_k(ctx).reshape(B, Tk, self.num_heads, self.head_dim)
             v = self.to_v(ctx).reshape(B, Tk, self.num_heads, self.head_dim)
-        out = scaled_dot_product_attention(q, k, v, bias=bias)
-        return self.dropout(self.to_out(out.reshape(B, Tq, -1)))
+        self_attn = context is None and kv_cache is None
+        out = scaled_dot_product_attention(
+            q, k, v, bias=bias, seq=self.seq if self_attn else None)
+        return seq_dropout(self.dropout, self.to_out(out.reshape(B, Tq, -1)),
+                           self.seq)
 
 
 class GEGLUFeedForward(nn.Module):
     """GEGLU feed-forward ``Dense(8C) -> value * gelu(gate) -> Dense(C)``,
     exact-erf GELU (diffusers ``FeedForward(activation_fn="geglu")``).
     Under tensor parallelism ``proj`` gives this rank's ``[value | gate]``
-    columns and the dropout keeps its slice of one whole mask."""
+    columns and the dropout keeps its slice of one whole mask, as it does
+    under sequence parallelism (``seq`` set)."""
 
     tp = None
+    seq = None
 
     def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0,
                  device=None):
@@ -195,8 +240,10 @@ class GEGLUFeedForward(nn.Module):
             x = copy_to_model(x, self.tp)
         value, gate = self.proj(x).chunk(2, dim=-1)
         h = value * F.gelu(gate)
-        if self.tp is not None and self.training and self.dropout.p > 0:
-            return self.out(sharded_dropout(h, self.dropout.p, self.tp))
+        if (self.tp is not None or self.seq is not None) and \
+                self.training and self.dropout.p > 0:
+            return self.out(sharded_dropout(h, self.dropout.p, self.tp,
+                                            self.seq))
         return self.out(self.dropout(h))
 
 
@@ -237,6 +284,14 @@ class TransformerBlock(nn.Module):
             x = x + self.attn2(self.norm2(x), context=context,
                                bias=cross_attn_bias, kv_cache=cross_kv)
         return x + self.ff(self.norm3(x))
+
+
+def seq_dropout(dropout: nn.Dropout, h: torch.Tensor, seq) -> torch.Tensor:
+    """``dropout(h)``; for a time slice ``h`` (``seq`` set) in training,
+    this rank's slice of one whole mask (``parallel.tp.sharded_dropout``)."""
+    if seq is None or not dropout.training or dropout.p == 0:
+        return dropout(h)
+    return sharded_dropout(h, dropout.p, seq=seq)
 
 
 def mask_to_bias(mask: torch.Tensor,

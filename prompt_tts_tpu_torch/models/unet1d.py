@@ -25,6 +25,18 @@ The reference UNet's optional variants are ported too:
 * ``downsample_avg_pool``: ``AvgPool1d(2, 2)`` in place of the strided conv;
 * ``upsample_conv_transpose``: ``ConvTranspose1d(C, C, 4, 2, 1)`` in place of
   nearest resize + conv, exactly 2x (its params ``upsample/{weight,bias}``).
+
+Sequence parallelism (``parallel/sp.py``): with ``seq`` set (by
+``parallel.sp.shard_seq_``) the UNet takes the whole sample, keeps this
+rank's slice of time, and returns the whole output.  At each call it arms
+every level from the whole lengths of that call (:meth:`UNet1DCondition.
+arm_seq`): a level whose length divides the group runs sharded (its
+layers' ``seq`` set), any other whole on every rank; the down- and
+upsamplers gather their input where a sharded level ends and slice their
+output where one begins.  A stride-2 downsample of an even slice needs
+its left neighbour's last frame only; an odd slice is gathered first, and
+a whole level is downsampled whole before the slice.  The target lengths
+of the upsamplers are the whole ones.
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -41,6 +53,7 @@ from prompt_tts_tpu_torch.models.layers import (
     Conv1d, Dense, Embedding, GroupNorm, TransformerBlock,
 )
 from prompt_tts_tpu_torch.ops.resnet import resnet_block
+from prompt_tts_tpu_torch.parallel import sp
 
 # {block: {attn: [(k, v) per transformer layer]}}, k/v [B, S, H, D]
 CrossKV = Dict[str, Dict[str, List[Tuple[torch.Tensor, torch.Tensor]]]]
@@ -63,6 +76,10 @@ class ResnetBlock1D(nn.Module):
     +shortcut, through ``ops/resnet.py:resnet_block`` (the fused kernel on
     the card when no gradient is needed, the module arithmetic otherwise)."""
 
+    # set: the block runs on this rank's slice of time (the module
+    # arithmetic, not the kernel; ops/resnet.py)
+    seq = None
+
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
                  groups: int = 32, eps: float = 1e-5, dropout: float = 0.0,
                  device=None):
@@ -84,7 +101,37 @@ class ResnetBlock1D(nn.Module):
         return resnet_block(self, x, temb)
 
 
-class Downsample1D(nn.Module):
+class _Resample(nn.Module):
+    """A down- or upsampler between two levels.  Under sequence parallelism
+    ``UNet1DCondition.arm_seq`` arms it (:meth:`arm`) with the group and
+    how it crosses (``mode``): "local" (it works on the slices themselves),
+    "gather" (it gathers its input: the input level is sharded, the output
+    whole), "slice" (it slices its output: the other way round),
+    "gather_slice" (both levels sharded, on slices it cannot work on), or
+    None (both levels whole)."""
+
+    group = None
+    mode = None
+
+    def arm(self, seq, in_sharded: bool, out_sharded: bool,
+            local: bool) -> None:
+        self.group = seq if in_sharded or out_sharded else None
+        self.mode = "local" if local else {
+            (True, False): "gather", (False, True): "slice",
+            (True, True): "gather_slice"}.get((in_sharded, out_sharded))
+
+    def _enter(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mode in ("gather", "gather_slice"):
+            return sp.gather_time(x, self.group)
+        return x
+
+    def _leave(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mode in ("slice", "gather_slice"):
+            return sp.slice_time(x, self.group)
+        return x
+
+
+class Downsample1D(_Resample):
     """Strided conv downsample (k3, s2, pad1)."""
 
     def __init__(self, channels: int, device=None):
@@ -92,11 +139,16 @@ class Downsample1D(nn.Module):
         self.conv = Conv1d(channels, channels, 3, stride=2, padding=1,
                            device=device)
 
+    def arm(self, seq, in_sharded, out_sharded, local) -> None:
+        super().arm(seq, in_sharded, out_sharded, local)
+        # the convolution runs before the slice: on slices only when local
+        self.conv.seq = seq if local else None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        return self._leave(self.conv(self._enter(x)))
 
 
-class AvgPoolDownsample1D(nn.Module):
+class AvgPoolDownsample1D(_Resample):
     """``AvgPool1d(2, 2)`` downsample (the reference's ``use_conv=False``),
     which cannot change the channel count."""
 
@@ -108,21 +160,32 @@ class AvgPoolDownsample1D(nn.Module):
         assert x.shape[-1] == self.channels, (
             "AvgPool downsample cannot change channels (reference "
             "resnet.py:76 asserts the same)")
-        return F.avg_pool1d(x.transpose(1, 2), 2, 2).transpose(1, 2)
+        x = self._enter(x)
+        return self._leave(
+            F.avg_pool1d(x.transpose(1, 2), 2, 2).transpose(1, 2))
 
 
-class Upsample1D(nn.Module):
+class Upsample1D(_Resample):
     """Nearest resize to the skip's length + conv k3."""
 
     def __init__(self, channels: int, device=None):
         super().__init__()
         self.conv = Conv1d(channels, channels, 3, device=device)
 
+    def arm(self, seq, in_sharded, out_sharded, local) -> None:
+        super().arm(seq, in_sharded, out_sharded, local)
+        # the convolution runs after the slice, on the output level
+        self.conv.seq = seq if out_sharded else None
+
     def forward(self, x: torch.Tensor, target_len: int) -> torch.Tensor:
-        return self.conv(_nearest_resize(x, target_len))
+        if self.mode == "local":
+            # an exact 2x resize of a slice is the slice of the resize
+            target_len //= self.group.size
+        x = _nearest_resize(self._enter(x), target_len)
+        return self.conv(self._leave(x))
 
 
-class ConvTransposeUpsample1D(nn.ConvTranspose1d):
+class ConvTransposeUpsample1D(nn.ConvTranspose1d, _Resample):
     """``ConvTranspose1d(C, C, 4, 2, 1)`` upsample on ``[B, T, C]``: exactly
     2x the length, no nearest resize.  Computes in ``compute_dtype`` (the
     weight's dtype when None), input and params cast per call, as
@@ -136,13 +199,25 @@ class ConvTransposeUpsample1D(nn.ConvTranspose1d):
         super().__init__(channels, channels, 4, 2, 1, device=device)
 
     def forward(self, x: torch.Tensor, target_len: int) -> torch.Tensor:
-        assert target_len == 2 * x.shape[1], (
+        # exactly 2x: a sharded input level makes the output level sharded
+        # too, so the mode is "local", "slice" or None
+        n = self.group.size if self.mode == "local" else 1
+        assert target_len == 2 * x.shape[1] * n, (
             "conv-transpose upsample is exactly 2x (reference resnet.py:38 "
             "returns self.conv(x) unconditionally)")
         dt = self.compute_dtype or self.weight.dtype
+        if self.mode == "local":
+            # a slice of T frames with one of each neighbour's: output
+            # frames [2, 2T + 2) of its transpose are the slice's
+            T = x.shape[1]
+            x = sp.halo(x, self.group, 1, 1)
+            y = F.conv_transpose1d(x.to(dt).transpose(1, 2),
+                                   self.weight.to(dt), self.bias.to(dt),
+                                   stride=2, padding=1)
+            return y[:, :, 2:2 * T + 2].transpose(1, 2)
         y = F.conv_transpose1d(x.to(dt).transpose(1, 2), self.weight.to(dt),
                                self.bias.to(dt), stride=2, padding=1)
-        return y.transpose(1, 2)
+        return self._leave(y.transpose(1, 2))
 
 
 class SpatialTransformer1D(nn.Module):
@@ -256,12 +331,25 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown mid block {cfg.mid_block_type}")
 
 
+def _set_seq(module: nn.Module, seq) -> None:
+    """Set ``seq`` on every layer of ``module`` that takes one."""
+    for m in module.modules():
+        if hasattr(type(m), "seq") and not isinstance(m, UNet1DCondition):
+            m.seq = seq
+
+
 class UNet1DCondition(nn.Module):
     """The conditional denoiser eps_hat(x_t, t, text_context).
 
     ``sample`` ``[B, T, in_channels]`` -> ``[B, T, out_channels]``;
     ``context`` is the text encoder output ``[B, S, cross_attention_dim]``.
+    With ``seq`` set (a ``parallel.sp.SeqGroup``) the sample and the output
+    are whole, and the levels that divide run on this rank's slice of time.
     """
+
+    seq = None
+    # ((whole length, group), plan) of the last arm_seq
+    _armed = (None, None)
 
     def __init__(self, config: ModelConfig, device=None):
         super().__init__()
@@ -325,6 +413,51 @@ class UNet1DCondition(nn.Module):
                                        cfg.norm_eps, device=device)
         self.conv_out = Conv1d(chans[0], cfg.out_channels, 3, device=device)
 
+    def level_lengths(self, T: int) -> List[int]:
+        """The whole length of each level for a sample of ``T`` frames:
+        ``ceil(T / 2)`` a strided-conv downsample, ``floor(T / 2)`` an
+        average pool."""
+        lengths = [T]
+        for _ in self.config.block_out_channels[1:]:
+            T = T // 2 if self.config.downsample_avg_pool else -(-T // 2)
+            lengths.append(T)
+        return lengths
+
+    def arm_seq(self, T: int) -> List[bool]:
+        """Arm every level for a sample of ``T`` whole frames under ``seq``:
+        which levels run sharded (their lengths divide the group), each
+        layer's ``seq``, and how each resampler crosses between levels.
+        Armed once a length; returns the plan."""
+        seq = self.seq
+        if self._armed[0] == (T, seq):
+            return self._armed[1]
+        n = len(self.config.block_out_channels)
+        L = self.level_lengths(T)
+        plan = [L[i] % seq.size == 0 for i in range(n)]
+
+        def at(i):
+            return seq if plan[i] else None
+        _set_seq(self.conv_in, at(0))
+        _set_seq(self.conv_norm_out, at(0))
+        _set_seq(self.conv_out, at(0))
+        for i in range(n):
+            _set_seq(getattr(self, f"down_{i}"), at(i))
+            _set_seq(getattr(self, f"up_{i}"), at(n - 1 - i))
+        if self.mid is not None:
+            _set_seq(self.mid, at(n - 1))
+        for i in range(n - 1):
+            ds = self.get_submodule(f"down_{i}.downsample")
+            # an even slice downsamples on its own (the left neighbour's
+            # last frame): the output is the next level's slice
+            local = plan[i] and (L[i] // seq.size) % 2 == 0
+            ds.arm(seq, plan[i], plan[i + 1], local)
+            j = n - 1 - i
+            us = self.get_submodule(f"up_{i}.upsample")
+            local = plan[j] and plan[j - 1] and L[j - 1] == 2 * L[j]
+            us.arm(seq, plan[j], plan[j - 1], local)
+        self._armed = ((T, seq), plan)
+        return plan
+
     def _time_features(self, t: torch.Tensor) -> torch.Tensor:
         """f32 features of timesteps (or "timestep" class labels) ``[B]``."""
         if self.time_proj is not None:
@@ -371,6 +504,11 @@ class UNet1DCondition(nn.Module):
         if class_emb is not None:
             temb = temb + class_emb.to(temb.dtype)
 
+        L = self.level_lengths(sample.shape[1])
+        seq = self.seq
+        sharded = seq is not None and self.arm_seq(L[0])[0]
+        if sharded:
+            sample = sp.slice_time(sample, seq)
         x = self.conv_in(sample)
         skips = [x]
         for i in range(n):
@@ -381,15 +519,15 @@ class UNet1DCondition(nn.Module):
             x = self.mid(x, temb, context, ckv.get("mid"))
 
         # each up block consumes layers_per_block+1 skips and upsamples to
-        # the length of the next skip to be consumed
-        up_layers = cfg.layers_per_block + 1
+        # the whole length of the next level up (the last block does not
+        # upsample)
         for i in range(n):
-            rest = len(skips) - up_layers
-            target = skips[rest - 1].shape[1] if rest > 0 else x.shape[1]
-            x = getattr(self, f"up_{i}").up(x, skips, temb, context, target,
+            x = getattr(self, f"up_{i}").up(x, skips, temb, context,
+                                            L[max(n - 2 - i, 0)],
                                             ckv.get(f"up_{i}"))
         x = F.silu(self.conv_norm_out(x))
-        return self.conv_out(x)
+        x = self.conv_out(x)
+        return sp.gather_time(x, seq) if sharded else x
 
 
 def cross_attn_sites(cfg: ModelConfig):

@@ -14,13 +14,20 @@ whose backward is the hand-written backward kernel
 ``attention_fused_bwd``), or :func:`attention_bwd_plain` on the CPU.  No
 flag arms it: needing a gradient is the rule.
 :func:`flash_attention_plain` is the TPU kernel's own math, which the bf16
-kernel computes; the card's checks hold that kernel to it.  Ring attention
-and sequence parallelism are not ported.
+kernel computes; the card's checks hold that kernel to it.
+
+Under sequence parallelism (``parallel/sp.py``) the dispatcher consults
+the seq group first, as JAX's consults its armed mesh: self-attention over
+time-sharded tensors runs the ring (``ops/ring_attention.py``, kernels #1
+and #2 at each step); cross-attention and every call without a group run
+as above.
 """
 
 from typing import Optional
 
 import torch
+
+from prompt_tts_tpu_torch.parallel import sp
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,9 +130,15 @@ class AttentionFunction(torch.autograd.Function):
 
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor,
-                                 bias: Optional[torch.Tensor] = None
-                                 ) -> torch.Tensor:
-    """Attention over ``[B, T, H, D]`` tensors with an optional key bias."""
+                                 bias: Optional[torch.Tensor] = None,
+                                 seq=None) -> torch.Tensor:
+    """Attention over ``[B, T, H, D]`` tensors with an optional key bias.
+    ``seq``: the ``parallel.sp.SeqGroup`` over which q, k and v are this
+    rank's time slices (None: the armed one, ``parallel.sp.enable``, or
+    whole tensors)."""
+    ring = sp.maybe_ring_attention(q, k, v, bias, seq)
+    if ring is not None:
+        return ring
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, bias)):
         return AttentionFunction.apply(q, k, v, bias)

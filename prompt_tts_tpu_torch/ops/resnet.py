@@ -25,7 +25,13 @@ this rank's output channels and gather them, and the kernel takes a whole
 block's packed weights: a sharded block runs the module arithmetic
 (:func:`resnet_block_plain` on the sharded convolutions), with or without
 a gradient.  This is a dispatch by configuration, not a fallback: the
-kernel stays the path of every unsharded block.
+kernel stays the path of every unsharded block.  The same holds under
+sequence parallelism (``parallel/sp.py``): a block at a level the UNet
+runs on this rank's slice of time (``block.seq`` set) needs its
+neighbours' edge frames for its convolutions and the group's GroupNorm
+statistics, which the kernel, taking a whole block, does not exchange; it
+runs the module arithmetic over the sharded layers.  The blocks of the
+levels that run whole keep the kernel.
 """
 
 import torch
@@ -42,9 +48,11 @@ def resnet_block_plain(block, x: torch.Tensor,
     """The module arithmetic of ``block`` (a ``models.unet1d.
     ResnetBlock1D``): f32 GroupNorm statistics (``F.group_norm``), the
     convolutions and products in the compute dtype."""
+    from prompt_tts_tpu_torch.models.layers import seq_dropout
     h = block.conv1(F.silu(block.norm1(x)))
     h = h + temb_proj[:, None, :]
-    h = block.conv2(block.dropout(F.silu(block.norm2(h))))
+    h = block.conv2(seq_dropout(block.dropout, F.silu(block.norm2(h)),
+                                getattr(block, "seq", None)))
     if block.conv_shortcut is not None:
         x = block.conv_shortcut(x)
     return x + h
@@ -86,8 +94,10 @@ def resnet_block(block, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
     temb_proj = block.time_emb_proj(F.silu(temb))
     dropout = block.training and block.dropout.p > 0
     packed = getattr(block, "kernel_weights", None)
-    if (x.device.type == "cpu" and packed is None) or dropout or \
-            block.conv1.tp is not None or _needs_grad(block, x, temb):
+    sharded = block.conv1.tp is not None or \
+        getattr(block, "seq", None) is not None
+    if (x.device.type == "cpu" and packed is None) or dropout or sharded \
+            or _needs_grad(block, x, temb):
         return resnet_block_plain(block, x, temb_proj)
     dt = _kernel_dtype(block)
     if packed is not None and traced():

@@ -274,16 +274,28 @@ def gather_from_model(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
     return _GatherFromModel.apply(x, tp)
 
 
-def sharded_dropout(h: torch.Tensor, p: float, tp: TPGroup) -> torch.Tensor:
-    """Dropout of rank ``tp.rank``'s last-dim slice of a hidden layer ``n``
-    times as wide: the whole layer's mask is drawn (every rank of the group
-    draws the same, from the same generator state) and this rank keeps its
-    slice, so the masks of the ranks are the slices of one mask and their
-    generators stay in step."""
-    w = h.shape[-1]
-    keep = torch.empty(h.shape[:-1] + (w * tp.size,), dtype=torch.bool,
+def sharded_dropout(h: torch.Tensor, p: float, tp: Optional[TPGroup] = None,
+                    seq=None) -> torch.Tensor:
+    """Dropout of this rank's slice of a hidden layer: with ``tp`` its
+    last-dim slice of a layer ``tp.size`` times as wide, with ``seq`` (a
+    ``parallel.sp.SeqGroup``) its time slice (dim 1) of a sequence
+    ``seq.size`` times as long.  The whole layer's mask is drawn (every
+    rank of the groups draws the same, from the same generator state) and
+    this rank keeps its slice, so the masks of the ranks are the slices of
+    one mask and their generators stay in step."""
+    shape = list(h.shape)
+    if seq is not None:
+        shape[1] *= seq.size
+    if tp is not None:
+        shape[-1] *= tp.size
+    keep = torch.empty(shape, dtype=torch.bool,
                        device=h.device).bernoulli_(1.0 - p)
-    keep = keep[..., tp.rank * w:(tp.rank + 1) * w]
+    if seq is not None:
+        t = h.shape[1]
+        keep = keep[:, seq.rank * t:(seq.rank + 1) * t]
+    if tp is not None:
+        w = h.shape[-1]
+        keep = keep[..., tp.rank * w:(tp.rank + 1) * w]
     return torch.where(keep, h / (1.0 - p), torch.zeros_like(h))
 
 

@@ -21,6 +21,16 @@ copy of the codec and returns the same wav (a CLI writes on rank 0).  A
 server runs the calls on rank 0 only: :meth:`Synthesizer.lead` makes
 rank 0 send each denoise's inputs to the group before it runs, and the
 other ranks run them in :meth:`Synthesizer.follow`.
+
+Sequence parallelism: in a process group whose seq axis has more than one
+rank (``parallel.init_distributed(n_seq=...)``), the UNet runs latent time
+sharded over the seq group (``parallel/sp.py``): every rank draws the
+whole x_T, the UNet takes its slice of each level that divides the group
+and returns the whole eps, so the sampler's state (``[B, T, n_q]``, a few
+kilobytes) stays whole on every rank and the latents need no gather
+before the rounding and the codec, which run whole on every rank.  A
+server leads and follows as under tensor parallelism, over the ranks of
+one data row (model x seq).
 """
 
 import contextlib
@@ -51,8 +61,10 @@ from prompt_tts_tpu_torch.models.prompt_tts import TTSPromptSpeaker
 from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
 from prompt_tts_tpu_torch.models.unet1d import cross_attn_sites
 from prompt_tts_tpu_torch.parallel import (
-    model_group, model_rank, model_size, model_src,
+    block_group, block_rank, block_src, model_group, model_rank, model_size,
+    seq_size,
 )
+from prompt_tts_tpu_torch.parallel.sp import mesh_seq, shard_seq_
 from prompt_tts_tpu_torch.parallel.tp import shard_model_
 from prompt_tts_tpu_torch.utils.precision import (  # noqa: F401
     _f32_scope, denoise_scope, full_f32,
@@ -331,8 +343,10 @@ class Synthesizer:
     several threads may call at once, each on a stream of its own.
 
     In a process group with a model axis of ``tp > 1`` ranks the denoiser
-    is sharded by ``parallel/tp.py``'s rules and every rank of the group
-    makes the same calls (see the module docstring); ``tp`` is that size.
+    is sharded by ``parallel/tp.py``'s rules, and with a seq axis of ``sp
+    > 1`` ranks its latent time by ``parallel/sp.py``'s; every rank of the
+    data row makes the same calls (see the module docstring); ``tp`` and
+    ``sp`` are those sizes.
     """
 
     def __init__(self, config: Optional[Config] = None, device="cuda",
@@ -362,6 +376,8 @@ class Synthesizer:
         self.tp = model_size()
         if self.tp > 1:
             shard_model_(self.model, model_rank(), self.tp, model_group())
+        self.sp = seq_size()
+        shard_seq_(self.model, mesh_seq())
         # set by lead(): the lock that holds one denoise's broadcast and
         # collectives together
         self._leading = None
@@ -480,24 +496,25 @@ class Synthesizer:
 
     def _send(self, inputs) -> None:
         """Broadcast a denoise's inputs and the sampler settings to the
-        model group (None: the followers return)."""
+        data row's ranks (None: the followers return)."""
         msg = None
         if inputs is not None:
             msg = (tuple(None if t is None else t.cpu() for t in inputs),
                    (self.sampler, self.num_inference_steps,
                     self.guidance_scale))
         torch.distributed.broadcast_object_list(
-            [msg], src=model_src(), group=model_group())
+            [msg], src=block_src(), group=block_group())
 
     def lead(self) -> None:
-        """On rank 0 of a model group (``tp > 1``): from now on every
-        denoise first sends its inputs (x_T, ids, mask, prompt latents) and
-        the sampler, step count and guidance scale to the group, whose
-        other ranks run it in :meth:`follow`; one denoise at a time, from
-        any thread.  :meth:`release` ends the followers."""
-        if self.tp == 1 or model_rank() != 0:
-            raise ValueError("lead() is for rank 0 of a model group of "
-                             "more than one rank")
+        """On rank 0 of a data row of more than one rank (``tp`` or ``sp``
+        > 1): from now on every denoise first sends its inputs (x_T, ids,
+        mask, prompt latents) and the sampler, step count and guidance
+        scale to the row, whose other ranks run it in :meth:`follow`; one
+        denoise at a time, from any thread.  :meth:`release` ends the
+        followers."""
+        if self.tp * self.sp == 1 or block_rank() != 0:
+            raise ValueError("lead() is for rank 0 of a model x seq group "
+                             "of more than one rank")
         self._leading = threading.Lock()
 
     def release(self) -> None:
@@ -509,17 +526,17 @@ class Synthesizer:
 
     @torch.no_grad()
     def follow(self) -> int:
-        """On the other ranks of a model group: run each denoise rank 0
-        sends (:meth:`lead`), with its settings, until it releases the
-        group.  Returns the number of denoises run."""
-        if self.tp == 1 or model_rank() == 0:
+        """On the other ranks of a data row: run each denoise rank 0 sends
+        (:meth:`lead`), with its settings, until it releases the row.
+        Returns the number of denoises run."""
+        if self.tp * self.sp == 1 or block_rank() == 0:
             raise ValueError("follow() is for the ranks other than 0 of a "
-                             "model group of more than one rank")
+                             "model x seq group of more than one rank")
         n = 0
         while True:
             box = [None]
             torch.distributed.broadcast_object_list(
-                box, src=model_src(), group=model_group())
+                box, src=block_src(), group=block_group())
             if box[0] is None:
                 return n
             inputs, settings = box[0]

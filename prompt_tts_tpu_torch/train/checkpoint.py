@@ -16,7 +16,10 @@ of rank 0's model group send it their slices of the state (parameters,
 AdamW moments, EMA, accumulated gradients), and it writes the whole
 (one-rank) layout (``parallel.tp.gather_train_state``); a restore reads
 the whole state and keeps this rank's slices, so a checkpoint restores
-on any number of model ranks, and in one process.
+on any number of model ranks, and in one process.  Under sequence
+parallelism the ranks of a seq group hold the same parameters: the seq
+rank 0 of data row 0 writes (with its model group's slices), and a
+checkpoint restores on any number of seq ranks.
 """
 
 import os
@@ -31,7 +34,7 @@ import torch.distributed as dist
 
 from prompt_tts_tpu_torch.parallel import (
     barrier, data_rank, model_group, model_rank, model_size, model_src,
-    world_rank,
+    seq_rank, world_rank,
 )
 from prompt_tts_tpu_torch.parallel.tp import (
     gather_train_state, shard_train_state,
@@ -67,7 +70,7 @@ class CheckpointManager:
         if model_size() == 1:
             if world_rank() == 0:
                 self._write(state.state_dict(), step, generators)
-        elif data_rank() == 0:
+        elif data_rank() == 0 and seq_rank() == 0:
             # rank 0's model group: every rank's slices go to rank 0
             local = _to_cpu(state.state_dict())
             shards = [None] * model_size() if model_rank() == 0 else None

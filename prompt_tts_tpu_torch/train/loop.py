@@ -36,8 +36,19 @@ rank of the dropout stream and the checkpoint's dropout streams are the
 data axis's: the ranks of one model group take the same rows and draw the
 same dropout masks, or their replicated activations would drift apart.
 A checkpoint holds the whole model (``train/checkpoint.py``), so it
-restores on any number of model ranks.  Sequence parallelism is not
-ported.
+restores on any number of model ranks.
+
+Sequence parallelism: with a seq axis of ``n_seq`` ranks
+(``parallel.init_distributed(n_seq=...)``, the CLI's ``--sp``) the world
+is ``data x model x seq`` ranks and the UNet runs latent time sharded
+over each seq group (``parallel/sp.py``).  The ranks of a seq group take
+the same rows, the same noise and timesteps (drawn whole) and the same
+dropout stream (the data rank's), so they draw one whole mask and keep
+their slices.  Each rank backs the whole loss out through the sharded
+UNet, which makes its gradient ``n_seq`` times its part, and DDP averages
+over data x seq (``parallel.grad_group``): the data average of the whole
+gradients, as one process computes them.  The parameters are replicated
+over the seq axis, so the checkpoint is the one-rank layout.
 """
 
 import logging
@@ -58,10 +69,11 @@ from prompt_tts_tpu_torch.models.layers import set_compute_dtype_
 from prompt_tts_tpu_torch.models.prompt_tts import TTSPromptSpeaker
 from prompt_tts_tpu_torch.models.tts import TTSSingleSpeaker
 from prompt_tts_tpu_torch.parallel import (
-    data_group, data_rank, data_size, distributed, gather_objects,
-    mean_over_ranks, model_group, model_rank, model_size, set_mesh,
-    shard_batch, shard_local_batch, world_rank,
+    data_rank, data_size, distributed, gather_objects, grad_group,
+    mean_over_ranks, model_group, model_rank, model_size, seq_size,
+    set_mesh, shard_batch, shard_local_batch, world_rank,
 )
+from prompt_tts_tpu_torch.parallel.sp import mesh_seq, shard_seq_
 from prompt_tts_tpu_torch.parallel.tp import shard_model_
 from prompt_tts_tpu_torch.pipeline import random_init_
 from prompt_tts_tpu_torch.train.checkpoint import CheckpointManager
@@ -124,8 +136,9 @@ class Trainer:
     ``profile_steps`` and ``per_process_data``: see the module docstring.
     Under a process group ``config.train.batch_size`` is the global batch
     and must split evenly over the data axis, and ``device`` is this
-    rank's.  ``n_model``: the model axis's size (None: the current mesh's;
-    another value lays the mesh out again, on every rank).
+    rank's.  ``n_model`` and ``n_seq``: the model and seq axes' sizes
+    (None: the current mesh's; another value lays the mesh out again, on
+    every rank).
     """
 
     def __init__(self, config: Config, dataset, log_dir: str,
@@ -135,7 +148,8 @@ class Trainer:
                  init_state: Optional[Mapping[str, torch.Tensor]] = None,
                  remat: bool = False, profile_steps: int = 0,
                  per_process_data: bool = False,
-                 n_model: Optional[int] = None):
+                 n_model: Optional[int] = None,
+                 n_seq: Optional[int] = None):
         if log_every < 0:
             raise ValueError(f"log_every must be >= 0, got {log_every}")
         if profile_steps < 0:
@@ -146,8 +160,10 @@ class Trainer:
             raise ValueError("Trainer: a prompt-conditioned config needs a "
                              "dataset with prompt_frames (prompt crops)")
         tcfg = config.train
-        if n_model is not None and n_model != model_size():
-            set_mesh(n_model)
+        n_model = model_size() if n_model is None else n_model
+        n_seq = seq_size() if n_seq is None else n_seq
+        if (n_model, n_seq) != (model_size(), seq_size()):
+            set_mesh(n_model, n_seq)
         self.rank, self.world = data_rank(), data_size()
         # the one process that writes metrics, traces and checkpoints
         self.writer = world_rank() == 0
@@ -177,6 +193,7 @@ class Trainer:
             random_init_(self.model,
                          torch.Generator().manual_seed(tcfg.seed))
         shard_model_(self.model, model_rank(), model_size(), model_group())
+        shard_seq_(self.model, mesh_seq())
         set_compute_dtype_(self.model,
                            None if dtype == torch.float32 else dtype)
         self.schedule = linear_schedule(tcfg.num_train_timesteps,
@@ -196,11 +213,11 @@ class Trainer:
             dropout_seed(tcfg.seed, self.rank))
         # every parameter is reached by both families' losses, the
         # condition drop included, so DDP needs no unused-parameter search;
-        # it all-reduces over the data axis only
+        # it averages over the data and seq axes (see the module docstring)
         self.module = self.model if shard is None else DDP(
             self.model, device_ids=([self.device.index]
                                     if self.device.type == "cuda" else None),
-            process_group=data_group())
+            process_group=grad_group())
         self._step_fn = make_train_step(
             self.state, self.schedule,
             cond_dropout_prob=tcfg.cond_dropout_prob, remat=remat,

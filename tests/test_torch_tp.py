@@ -26,6 +26,7 @@ import functools
 import http.client
 import json
 import os
+import random
 import signal
 import socket
 import subprocess
@@ -253,9 +254,17 @@ def one_torch_thread():
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port that binds now, drawn below Linux's ephemeral range (32768
+    up): a port the kernel hands out (``bind`` to 0) can be taken by an
+    outgoing connection of another rank before its server binds it."""
+    while True:
+        port = random.SystemRandom().randrange(20000, 32768)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
 
 
 def _start(argv, out, n, torchrun=False):
